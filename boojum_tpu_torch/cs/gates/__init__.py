@@ -1,0 +1,8 @@
+from .base import Gate, RowView, TermsCollector
+from .simple import (
+    GATES_BY_NAME,
+    ConstantsAllocatorGate,
+    FmaGate,
+    NopGate,
+    PublicInputGate,
+)

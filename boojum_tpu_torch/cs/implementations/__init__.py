@@ -1,0 +1,1 @@
+from .reference_cs import ConstraintSystem, CSAssembly
