@@ -8,9 +8,10 @@
 // into u32 planes; here each thread folds one pair with 64-bit words.
 //
 // What bounds it on the H100: device memory. Each output reads 40 bytes
-// (two ext values and 1/x) and writes 16 for 7 field multiplies, far below
-// the integer rate. The design is one coalesced elementwise pass per round:
-// neighbouring threads read neighbouring pairs, nothing is staged.
+// (two ext values and 1/x) and writes 16 for 7 field multiplies, about 2.5
+// 32-bit integer instructions per byte, half the card's ratio of integer
+// issue rate to memory rate. The design is one coalesced elementwise pass
+// per round: neighbouring threads read neighbouring pairs, nothing is staged.
 #include "goldilocks.cuh"
 
 namespace {

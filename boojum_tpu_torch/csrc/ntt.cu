@@ -8,14 +8,18 @@
 // unit and no 64-bit multiply; Hopper multiplies 64-bit words directly, so
 // this is the plain butterfly network of ntt.py's dif_stages / dit_stages.
 //
-// What bounds it on the H100: device memory. A butterfly is one field
-// multiply and two adds per 16 bytes read and written, far below the card's
-// integer rate. The design keeps the last 11 stages of the forward transform
-// (the first 11 of the inverse) in shared memory: a block loads a tile of
-// 2048 contiguous words once, runs those stages there, and writes it back.
-// The wider stages are one global pass each. The coset scale of the LDE is
-// folded into the first pass and the 1/n of the inverse into the last, so
-// neither costs a pass of its own.
+// What bounds it on the H100: integer operations. A butterfly is one field
+// multiply and two adds, about 24 32-bit integer instructions, and a 2^20
+// transform runs 20 stages of them: some 240 instructions per word, which
+// is read once and written once (16 bytes). That is about three times the
+// card's ratio of integer issue rate (64 per SM per clock) to memory rate,
+// so the multiplies, not the bytes, set the least time. The design keeps
+// the last 11 stages of the forward transform (the first 11 of the inverse)
+// in shared memory: a block loads a tile of 2048 contiguous words once, runs
+// those stages there, and writes it back. The wider stages are one global
+// pass each, which adds memory traffic on top of the arithmetic. The coset
+// scale of the LDE is folded into the first pass and the 1/n of the inverse
+// into the last, so neither costs a pass of its own.
 //
 // Layout: rows of n words, row-major. Forward: input row r / L (scaled by
 // scale row r % L when a scale is given) lands in output row r, so a (B, n)

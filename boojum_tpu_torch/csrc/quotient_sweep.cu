@@ -10,20 +10,24 @@
 // gate's captured op program from a table, so a new gate or a new
 // challenge needs no rebuild.
 //
-// What bounds it on the H100: device memory at the fma-chain widths. A row
-// reads 8 bytes from each of the 55 coset columns and tables (16 witness,
-// 22 setup, 12 stage-2, 2 shifted z, x, L0, 1/Z_H) and writes 16, for some
-// 150 field multiplies; the table and the challenge powers are read by
-// every thread at the same address and stay in cache. The interpreter keeps
-// its slots in a small per-thread array.
+// What bounds it on the H100: integer operations. A row reads 8 bytes from
+// each of the 55 coset columns and tables (16 witness, 22 setup, 12 stage-2,
+// 2 shifted z, x, L0, 1/Z_H) and writes 16, about 460 bytes, and at the
+// fma-chain widths does some 6,500 32-bit integer instructions (the gate
+// programs, the GF(p^2) chunk products and the alpha weights, as
+// chip_smoke.py counts them): about 14 per byte, nearly three times the
+// card's ratio of integer issue rate to memory rate. The table and the
+// challenge powers are read by every thread at the same address and stay in
+// cache. The interpreter keeps its slots in a small per-thread array.
 //
 // Program table (int32), per gate with quotient terms, in gate order:
 //   path_len, path bits..., reps, principal_width, const_off, num_slots,
-//   num_loads, (slot, kind 0=copy 1=witness 2=constant, index)...,
+//   num_loads, (slot, kind 0=copy 2=constant, index)...,
 //   num_consts, (slot, index into kvals)...,
 //   num_ops, (opcode 0=add 1=sub 2=mul 3=neg 4=double, dst, a, b)...,
 //   num_terms, term slots...
-// preceded by the gate count. Scalar table (uint64): beta (2), gamma (2),
+// preceded by the gate count. Kind 1 (a witness column) is refused by the
+// encoder on the host until witness columns are ported. Scalar table (uint64): beta (2), gamma (2),
 // the non-residues (Ct), then the alpha powers as c0 (T) and c1 (T).
 #include "goldilocks.cuh"
 
@@ -44,7 +48,7 @@ __global__ void sweep(const uint64_t* __restrict__ wit,
                       const uint64_t* __restrict__ table,
                       const int* __restrict__ prog,
                       const uint64_t* __restrict__ kvals, int Ct,
-                      int chunk_deg, int num_alpha, int wit_base, size_t n,
+                      int chunk_deg, int num_alpha, size_t n,
                       uint64_t* __restrict__ out0,
                       uint64_t* __restrict__ out1) {
   const size_t row = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -79,19 +83,10 @@ __global__ void sweep(const uint64_t* __restrict__ wit,
       pc = body;
       const int num_loads = prog[pc++];
       for (int i = 0; i < num_loads; ++i, pc += 3) {
-        const int kind = prog[pc + 1], idx = prog[pc + 2];
-        size_t col;
-        const uint64_t* base;
-        if (kind == 0) {
-          base = wit;
-          col = size_t(inst * pw + idx);
-        } else if (kind == 1) {
-          base = wit;
-          col = size_t(wit_base + idx);
-        } else {
-          base = consts;
-          col = size_t(const_off + idx);
-        }
+        const int idx = prog[pc + 2];
+        const size_t col = prog[pc + 1] == 0 ? size_t(inst * pw + idx)
+                                             : size_t(const_off + idx);
+        const uint64_t* base = prog[pc + 1] == 0 ? wit : consts;
         slot[prog[pc]] = base[col * n + row];
       }
       const int num_consts = prog[pc++];
@@ -164,12 +159,11 @@ extern "C" cudaError_t bt_quotient_sweep(
     const uint64_t* wit, const uint64_t* setup, const uint64_t* s2,
     const uint64_t* zs, const uint64_t* xs, const uint64_t* l0,
     const uint64_t* zhinv, const uint64_t* table, const int* prog,
-    const uint64_t* kvals, int Ct, int chunk_deg, int num_alpha, int wit_base,
-    long long n, uint64_t* out0, uint64_t* out1, cudaStream_t stream) {
+    const uint64_t* kvals, int Ct, int chunk_deg, int num_alpha, long long n,
+    uint64_t* out0, uint64_t* out1, cudaStream_t stream) {
   const unsigned blocks = unsigned((size_t(n) + kThreads - 1) / kThreads);
   sweep<<<blocks, kThreads, 0, stream>>>(wit, setup, s2, zs, xs, l0, zhinv,
                                          table, prog, kvals, Ct, chunk_deg,
-                                         num_alpha, wit_base, size_t(n), out0,
-                                         out1);
+                                         num_alpha, size_t(n), out0, out1);
   return cudaGetLastError();
 }

@@ -207,5 +207,13 @@ def modsum(a, dim: int = -1):
 
 
 def powers(base: int, count: int, device) -> torch.Tensor:
-    """[1, b, ..., b^(count-1)], built on the host and uploaded."""
-    return from_numpy(gl.powers_np(int(base) % P, count), device)
+    """[1, b, ..., b^(count-1)] by log-doubling on the device: each step
+    multiplies the powers so far by b^cur."""
+    base = int(base) % P
+    out = torch.ones(count, dtype=torch.int64, device=device)
+    cur = 1
+    while cur < count:
+        nxt = min(cur, count - cur)
+        out[cur : cur + nxt] = mul(out[:nxt], gl.pow_(base, cur))
+        cur += nxt
+    return out

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from .. import kernels as K
@@ -29,13 +28,19 @@ from ..field import gl
 from ..field import goldilocks as gf
 
 
-def bitreverse_indices(log_n: int) -> np.ndarray:
-    """perm[i] = bitreverse(i, log_n) as an int64 numpy array."""
-    idx = np.arange(1 << log_n, dtype=np.int64)
-    rev = np.zeros_like(idx)
+@lru_cache(maxsize=8)
+def _bitreverse(log_n: int, device: str) -> torch.Tensor:
+    idx = torch.arange(1 << log_n, dtype=torch.int64, device=device)
+    rev = torch.zeros_like(idx)
     for b in range(log_n):
         rev |= ((idx >> b) & 1) << (log_n - 1 - b)
     return rev
+
+
+def bitreverse_indices(log_n: int, device="cpu") -> torch.Tensor:
+    """perm[i] = bitreverse(i, log_n), an int64 tensor built on `device`
+    (cached; do not write to it)."""
+    return _bitreverse(log_n, str(torch.device(device)))
 
 
 class NTTContext:
@@ -193,11 +198,10 @@ def _lde_scale(log_n: int, lde_factor: int, device: str):
     log_lde = _log2(lde_factor) if lde_factor > 1 else 0
     w_full = gl.omega(log_n + log_lde)
     shifts = [
-        gl.mul(gl.MULTIPLICATIVE_GENERATOR, gl.pow_(w_full, int(j)))
-        for j in bitreverse_indices(log_lde)
+        gl.mul(gl.MULTIPLICATIVE_GENERATOR, gl.pow_(w_full, j))
+        for j in bitreverse_indices(log_lde).tolist()
     ]
-    rows = np.stack([gl.powers_np(s, n) for s in shifts])
-    return gf.from_numpy(rows, device)
+    return torch.stack([gf.powers(s, n, device) for s in shifts])
 
 
 def lde_scale_rows(log_n: int, lde_factor: int, device) -> torch.Tensor:
@@ -246,7 +250,7 @@ def distribute_powers(a: torch.Tensor, base: int) -> torch.Tensor:
 def monomial_from_values(values: torch.Tensor) -> torch.Tensor:
     """Values over H in natural order -> monomial coefficients."""
     log_n = _log2(values.shape[-1])
-    brev = torch.from_numpy(bitreverse_indices(log_n)).to(values.device)
+    brev = bitreverse_indices(log_n, values.device)
     return ifft_bitreversed_to_natural(values[..., brev].contiguous())
 
 

@@ -10,12 +10,6 @@ class ProofConfig:
     num_queries: int = 50
     pow_bits: int = 0
     fri_final_degree: int = 64  # stop folding when the degree is <= this
-    # explicit per-oracle fold counts; None derives the greedy [3, 3, .., rem]
-    fri_folding_schedule: list | None = None
-    # quotient cosets (= degree-< n quotient chunks); None derives it from
-    # the circuit's constraint degrees at setup time
-    quotient_degree: int | None = None
-    transcript: str = "poseidon2"
 
     def __post_init__(self):
         def pow2(x):
@@ -23,11 +17,3 @@ class ProofConfig:
 
         if not pow2(self.fri_lde_factor) or not pow2(self.merkle_tree_cap_size):
             raise ValueError("fri_lde_factor and cap size must be powers of two")
-        if self.fri_folding_schedule is not None and any(
-            int(k) < 1 for k in self.fri_folding_schedule
-        ):
-            raise ValueError("every fold count must be >= 1")
-        if self.quotient_degree is not None and not pow2(self.quotient_degree):
-            raise ValueError("quotient_degree must be a power of two")
-        if self.transcript != "poseidon2":
-            raise ValueError(f"transcript {self.transcript!r} is not ported")

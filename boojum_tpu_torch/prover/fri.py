@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from .. import kernels as K
@@ -31,9 +30,9 @@ def _fold_tables(log_full: int, num_rounds: int, device: str):
         log_nr = log_full - r
         # 1/x over the round-r domain g^(2^r)·<w_{N>>r}>, natural order
         shift_inv = gl.inv(gl.pow_(gl.MULTIPLICATIVE_GENERATOR, 1 << r))
-        inv_nat = gl.mul_np(gl.powers_np(gl.inv(gl.omega(log_nr)), 1 << log_nr),
-                            np.uint64(shift_inv))
-        tables.append(gf.from_numpy(inv_nat[bitreverse_indices(log_nr)[0::2]], device))
+        inv_nat = gf.mul(gf.powers(gl.inv(gl.omega(log_nr)), 1 << log_nr, device),
+                         shift_inv)
+        tables.append(inv_nat[bitreverse_indices(log_nr, device)[0::2]])
     return tables
 
 
@@ -79,9 +78,8 @@ def fold_once(c0: torch.Tensor, c1: torch.Tensor, ch, inv_x: torch.Tensor):
     return o0, o1
 
 
-def fold_schedule(base_degree: int, final_degree: int, explicit=None) -> list[int]:
-    """Per-oracle fold counts: greedy 3s then the remainder, unless an
-    explicit schedule is configured."""
+def fold_schedule(base_degree: int, final_degree: int) -> list[int]:
+    """Per-oracle fold counts: greedy 3s, then the remainder."""
     num = 0
     deg = base_degree
     while deg > final_degree:
@@ -89,11 +87,6 @@ def fold_schedule(base_degree: int, final_degree: int, explicit=None) -> list[in
         num += 1
     if num < 1:
         raise ValueError("nothing to fold; lower fri_final_degree")
-    if explicit is not None:
-        explicit = [int(k) for k in explicit]
-        if sum(explicit) != num or any(k < 1 for k in explicit):
-            raise ValueError(f"folding schedule {explicit} must sum to {num}")
-        return explicit
     out = []
     rem = num
     while rem > 3:
@@ -131,8 +124,7 @@ def fri_prove(codeword, transcript, config, base_degree: int, checkpoint) -> Fri
     dev = c0.device
     N = c0.shape[0]
     log_full = N.bit_length() - 1
-    schedule = fold_schedule(base_degree, config.fri_final_degree,
-                             config.fri_folding_schedule)
+    schedule = fold_schedule(base_degree, config.fri_final_degree)
     out.schedule = schedule
     num_folds = sum(schedule)
     tables = fold_challenge_tables(log_full, num_folds, dev)

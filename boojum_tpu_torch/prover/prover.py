@@ -34,6 +34,7 @@ from ..field import gl
 from ..field import goldilocks as gf
 from ..merkle import MerkleTreeWithCap, commit_layers_device
 from ..ntt import (
+    bitreverse_indices,
     distribute_powers,
     eval_monomial_at_ext_point,
     fft_natural_to_bitreversed,
@@ -43,8 +44,7 @@ from ..ntt import (
     monomial_from_values,
     powers_device,
 )
-from ..ntt.ntt import bitreverse_indices
-from ..transcript import BitSource, make_transcript
+from ..transcript import BitSource, Poseidon2Transcript
 from .config import ProofConfig
 from .fri import fri_prove
 from .pow import pow_grind
@@ -56,25 +56,29 @@ from .stages import stage2_columns
 @lru_cache(maxsize=4)
 def _domain_tables(log_n: int, lde_factor: int, device: str):
     """(x, L0(x), 1/Z_H(x)) over the rate-`lde_factor` domain g·<w_N>, in
-    bit-reversed order (so slice c·n:(c+1)·n is coset c)."""
+    bit-reversed order (so slice c·n:(c+1)·n is coset c), built on the
+    device."""
     n = 1 << log_n
     log_lde = lde_factor.bit_length() - 1
     log_full = log_n + log_lde
-    brev = bitreverse_indices(log_full)
-    xs_np = gl.mul_np(gl.powers_np(gl.omega(log_full), n << log_lde),
-                      np.uint64(gl.MULTIPLICATIVE_GENERATOR))[brev]
     w_full = gl.omega(log_full)
+    xs = gf.mul(gf.powers(w_full, n << log_lde, device),
+                gl.MULTIPLICATIVE_GENERATOR)[bitreverse_indices(log_full, device)]
+    # Z_H(x) = x^n - 1 is one constant per coset
     zh, zh_inv = [], []
-    for jb in bitreverse_indices(log_lde):
-        shift = gl.mul(gl.MULTIPLICATIVE_GENERATOR, gl.pow_(w_full, int(jb)))
+    for jb in bitreverse_indices(log_lde).tolist():
+        shift = gl.mul(gl.MULTIPLICATIVE_GENERATOR, gl.pow_(w_full, jb))
         zh.append(gl.sub(gl.pow_(shift, n), 1))
         zh_inv.append(gl.inv(zh[-1]))
-    xs = gf.from_numpy(xs_np, device)
-    zh_dev = gf.from_numpy(np.repeat(np.array(zh, dtype=np.uint64), n), device)
+
+    def per_coset(vals):
+        words = torch.tensor([gf.as_i64(v) for v in vals], dtype=torch.int64,
+                             device=device)
+        return words.repeat_interleave(n)
+
     # L0(x) = (x^n - 1) / (n (x - 1))
-    l0 = gf.mul(gf.mul(zh_dev, gl.inv(n)), gf.batch_inverse(gf.sub(xs, 1)))
-    zh_inv_dev = gf.from_numpy(np.repeat(np.array(zh_inv, dtype=np.uint64), n), device)
-    return xs, l0, zh_inv_dev
+    l0 = gf.mul(gf.mul(per_coset(zh), gl.inv(n)), gf.batch_inverse(gf.sub(xs, 1)))
+    return xs, l0, per_coset(zh_inv)
 
 
 def _commit(values_or_mono, L, cap, from_values=True):
@@ -84,21 +88,17 @@ def _commit(values_or_mono, L, cap, from_values=True):
 
 
 class _Clock:
-    """Per-round wall seconds (device synchronised) into `timings`; each
-    timed round is also a `prove.<round>` range for torch.profiler."""
+    """Per-round wall seconds (device synchronised) into `timings`."""
 
     def __init__(self, timings, device):
         self.timings = timings
         self.device = device
         self.name = None
         self.t0 = None
-        self.range = None
 
     def start(self, name):
         self.stop()
         if self.timings is not None:
-            self.range = torch.profiler.record_function(f"prove.{name}")
-            self.range.__enter__()
             self.name, self.t0 = name, time.perf_counter()
 
     def stop(self):
@@ -107,8 +107,7 @@ class _Clock:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timings[self.name] = time.perf_counter() - self.t0
-        self.range.__exit__(None, None, None)
-        self.name = self.range = None
+        self.name = None
 
 
 def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
@@ -127,10 +126,10 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     cap = config.merkle_tree_cap_size
     geometry = assembly.geometry
     Ct = assembly.copy_placement.shape[0]
-    Q = setup.vk.effective_quotient_degree()
+    Q = setup.vk.quotient_degree
     omega = gl.omega(log_n)
 
-    t = make_transcript(setup.vk.transcript)
+    t = Poseidon2Transcript()
     t.witness_merkle_tree_cap(setup.vk.setup_merkle_cap)
     checkpoint(0, "setup_cap", setup.vk.setup_merkle_cap)
     pi_values = [v for (_c, _r, v) in assembly.public_inputs]

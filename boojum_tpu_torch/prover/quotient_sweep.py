@@ -36,13 +36,39 @@ def chunk_columns(num_cols: int, max_degree: int):
     return [list(range(i, min(i + w, num_cols))) for i in range(0, num_cols, w)]
 
 
+def chunk_num_den(copy_vals, sigma_vals, non_residues, xs, beta, gamma, chunks):
+    """Per chunk of copy columns, the products of num = w + beta·k·x + gamma
+    and den = w + beta·sigma + gamma, each a (num_chunks, n) ext pair."""
+    nums, dens = [], []
+    for chunk in chunks:
+        num_p = den_p = None
+        for col in chunk:
+            w = copy_vals[col]
+            kx = gf.mul(xs, int(non_residues[col]))
+            num = (gf.add(gf.add(w, gf.mul(kx, beta[0])), gamma[0]),
+                   gf.add(gf.mul(kx, beta[1]), gamma[1]))
+            s = sigma_vals[col]
+            den = (gf.add(gf.add(w, gf.mul(s, beta[0])), gamma[0]),
+                   gf.add(gf.mul(s, beta[1]), gamma[1]))
+            num_p = num if num_p is None else ext_f.mul(num_p, num)
+            den_p = den if den_p is None else ext_f.mul(den_p, den)
+        nums.append(num_p)
+        dens.append(den_p)
+    stack = lambda ps, i: torch.stack([p[i] for p in ps])  # noqa: E731
+    return (stack(nums, 0), stack(nums, 1)), (stack(dens, 0), stack(dens, 1))
+
+
 def num_gate_terms(gates, geometry) -> int:
     return sum(g.num_repetitions(geometry) * g.num_terms for g in gates if g.num_terms)
 
 
 def encode_gate_programs(gates, selector_paths, geometry):
     """(int32 program table, uint64 constant values) for every gate with
-    quotient terms, in gate order (layout in csrc/quotient_sweep.cu)."""
+    quotient terms, in gate order (layout in csrc/quotient_sweep.cu).
+    Every cell a program loads lies inside the geometry's copy and constant
+    columns, which the kernel relies on. Raises on a gate that loads witness
+    columns: they are not ported."""
+    num_consts = geometry.num_constant_columns
     prog = [0]
     kvals = []
     for gid, gate in enumerate(gates):
@@ -53,11 +79,21 @@ def encode_gate_programs(gates, selector_paths, geometry):
             raise ValueError(f"gate {gate.name}: {p.num_slots} slots > {MAX_SLOTS}")
         if len(p.terms) != gate.num_terms:
             raise ValueError(f"gate {gate.name}: term count mismatch")
+        if any(kind == "w" for _slot, kind, _idx in p.loads):
+            raise NotImplementedError(
+                f"gate {gate.name} loads witness columns, which are not ported yet"
+            )
         path = selector_paths[gid]
+        reps, pw = gate.num_repetitions(geometry), gate.principal_width
+        for _slot, kind, idx in p.loads:
+            limit = pw if kind == "v" else num_consts - len(path)
+            if not 0 <= idx < limit:
+                raise ValueError(f"gate {gate.name}: {kind} load {idx} outside {limit}")
+        if reps * pw > geometry.num_columns_under_copy_permutation or len(path) > num_consts:
+            raise ValueError(f"gate {gate.name} does not fit the geometry")
         prog[0] += 1
         prog += [len(path), *path]
-        prog += [gate.num_repetitions(geometry), gate.principal_width, len(path),
-                 p.num_slots]
+        prog += [reps, pw, len(path), p.num_slots]
         prog.append(len(p.loads))
         for slot, kind, idx in p.loads:
             prog += [slot, LOAD_KINDS[kind], idx]
@@ -85,6 +121,7 @@ class SweepPlan:
         self.kvals = gf.from_numpy(kvals if kvals.size else np.zeros(1, np.uint64),
                                    device)
         self.Ct = num_copy_cols
+        self.num_setup_cols = num_copy_cols + geometry.num_constant_columns
         self.chunk_deg = max(1, geometry.max_allowed_constraint_degree)
         self.num_chunks = len(chunk_columns(num_copy_cols, self.chunk_deg))
         self.num_gate_terms = num_gate_terms(gates, geometry)
@@ -140,10 +177,8 @@ def coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table):
                 slot, kind, idx = take(3)
                 if kind == LOAD_KINDS["v"]:
                     slots[slot] = wit[inst * pw + idx]
-                elif kind == LOAD_KINDS["c"]:
-                    slots[slot] = consts[const_off + idx]
                 else:
-                    raise NotImplementedError("witness columns are not ported yet")
+                    slots[slot] = consts[const_off + idx]
             for _i in range(take(1)[0]):
                 slot, k = take(2)
                 slots[slot] = kvals[k]
@@ -173,21 +208,12 @@ def coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table):
     acc = ext_f.add(acc, ext_f.mul(ext_f.mul_by_base(zm1, l0), (a0[t], a1[t])))
     t += 1
     chunks = chunk_columns(Ct, plan.chunk_deg)
+    nums, dens = chunk_num_den(wit, setup, ks, xs, beta, gamma, chunks)
     prev = z
-    for j, chunk in enumerate(chunks):
-        num_p = den_p = None
-        for col in chunk:
-            w = wit[col]
-            kx = gf.mul(xs, ks[col])
-            num = (gf.add(gf.add(w, gf.mul(kx, beta[0])), gamma[0]),
-                   gf.add(gf.mul(kx, beta[1]), gamma[1]))
-            s = setup[col]
-            den = (gf.add(gf.add(w, gf.mul(s, beta[0])), gamma[0]),
-                   gf.add(gf.mul(s, beta[1]), gamma[1]))
-            num_p = num if num_p is None else ext_f.mul(num_p, num)
-            den_p = den if den_p is None else ext_f.mul(den_p, den)
+    for j in range(len(chunks)):
         lhs = (s2[2 + 2 * j], s2[3 + 2 * j]) if j + 1 < len(chunks) else (zs[0], zs[1])
-        term = ext_f.sub(ext_f.mul(lhs, den_p), ext_f.mul(prev, num_p))
+        term = ext_f.sub(ext_f.mul(lhs, (dens[0][j], dens[1][j])),
+                         ext_f.mul(prev, (nums[0][j], nums[1][j])))
         acc = ext_f.add(acc, ext_f.mul(term, (a0[t], a1[t])))
         t += 1
         prev = lhs
@@ -202,12 +228,10 @@ def coset_terms(plan: SweepPlan, wit, setup, s2, zs, xs, l0, zhinv, table):
     xs, l0, zhinv (n,) the coset's x, L0(x) and 1/Z_H(x)."""
     n = xs.shape[0]
     for t, what, rows in (
-        (wit, "witness", plan.Ct), (setup, "setup", None), (s2, "stage 2", 2 * plan.num_chunks),
-        (zs, "shifted z", 2),
+        (wit, "witness", plan.Ct), (setup, "setup", plan.num_setup_cols),
+        (s2, "stage 2", 2 * plan.num_chunks), (zs, "shifted z", 2),
     ):
-        K.require(t, f"sweep {what}")
-        if t.dim() != 2 or t.shape[1] != n or (rows is not None and t.shape[0] != rows):
-            raise ValueError(f"sweep {what}: bad shape {tuple(t.shape)}")
+        K.require(t, f"sweep {what}", (rows, n))
     for t, what in ((xs, "xs"), (l0, "L0"), (zhinv, "1/Z_H")):
         K.require(t, f"sweep {what}", (n,))
     K.require(table, "sweep table", (4 + plan.Ct + 2 * plan.num_alpha,))
@@ -224,7 +248,7 @@ def coset_terms(plan: SweepPlan, wit, setup, s2, zs, xs, l0, zhinv, table):
                 K.ptr(wit), K.ptr(setup), K.ptr(s2), K.ptr(zs), K.ptr(xs),
                 K.ptr(l0), K.ptr(zhinv), K.ptr(table), K.ptr(plan.prog),
                 K.ptr(plan.kvals), plan.Ct, plan.chunk_deg, plan.num_alpha,
-                plan.Ct, n, K.ptr(out0), K.ptr(out1), K.stream(dev),
+                n, K.ptr(out0), K.ptr(out1), K.stream(dev),
             ),
             "quotient_sweep",
         )

@@ -126,12 +126,7 @@ class VerificationKey:
     setup_merkle_cap: list
     num_copy_cols: int
     num_wit_cols: int
-    fri_folding_schedule: list | None = None
-    quotient_degree: int | None = None
-    transcript: str = "poseidon2"
-
-    def effective_quotient_degree(self) -> int:
-        return self.quotient_degree or self.fri_lde_factor
+    quotient_degree: int
 
 
 @dataclass
@@ -148,18 +143,15 @@ class SetupData:
     non_residues: list
 
 
-def quotient_degree_for(assembly, tree, config) -> int:
+def quotient_degree_for(assembly, tree) -> int:
     """The quotient coset count: the next power of two of the masked
-    constraint degree, unless the config fixes it."""
+    constraint degree."""
     tree_degree, tree_constants = tree.compute_stats()
     geom = assembly.geometry
     degree_bound = max(tree_degree, geom.max_allowed_constraint_degree + 1, 1)
-    q = config.quotient_degree or 1 << (degree_bound - 1).bit_length()
-    if tree_degree > q or geom.max_allowed_constraint_degree + 1 > q:
-        raise ValueError(f"constraint degree exceeds quotient_degree {q}")
     if tree_constants > geom.num_constant_columns:
         raise ValueError("selector tree needs more constant columns")
-    return q
+    return 1 << (degree_bound - 1).bit_length()
 
 
 def commit_setup(assembly, config, sigma, consts, selector_paths,
@@ -176,8 +168,6 @@ def commit_setup(assembly, config, sigma, consts, selector_paths,
         geometry=assembly.geometry,
         trace_len=assembly.trace_len,
         fri_lde_factor=config.fri_lde_factor,
-        quotient_degree=quotient_degree,
-        transcript=config.transcript,
         cap_size=config.merkle_tree_cap_size,
         num_queries=config.num_queries,
         pow_bits=config.pow_bits,
@@ -188,7 +178,7 @@ def commit_setup(assembly, config, sigma, consts, selector_paths,
         setup_merkle_cap=tree.get_cap(),
         num_copy_cols=sigma.shape[0],
         num_wit_cols=0,
-        fri_folding_schedule=config.fri_folding_schedule,
+        quotient_degree=quotient_degree,
     )
     return SetupData(
         vk=vk,
@@ -208,7 +198,7 @@ def generate_setup(assembly, config, device="cuda") -> SetupData:
     if config.fri_final_degree >= assembly.trace_len:
         raise ValueError("fri_final_degree must be below the trace length")
     tree, selector_paths = build_selector_tree(assembly.gates)
-    q = quotient_degree_for(assembly, tree, config)
+    q = quotient_degree_for(assembly, tree)
     sigma = compute_sigma_values(assembly.copy_placement)
     consts = build_constant_columns(assembly, selector_paths)
     return commit_setup(

@@ -13,28 +13,7 @@ import torch
 
 from ..field import extension as ext_f
 from ..field import goldilocks as gf
-from .quotient_sweep import chunk_columns
-
-
-def chunk_num_den(copy_vals, sigma_vals, non_residues, xs, beta, gamma, chunks):
-    """Per-chunk numerator and denominator products, each a (K, n) ext pair."""
-    nums, dens = [], []
-    for chunk in chunks:
-        num_p = den_p = None
-        for col in chunk:
-            w = copy_vals[col]
-            kx = gf.mul(xs, int(non_residues[col]))
-            num = (gf.add(gf.add(w, gf.mul(kx, beta[0])), gamma[0]),
-                   gf.add(gf.mul(kx, beta[1]), gamma[1]))
-            s = sigma_vals[col]
-            den = (gf.add(gf.add(w, gf.mul(s, beta[0])), gamma[0]),
-                   gf.add(gf.mul(s, beta[1]), gamma[1]))
-            num_p = num if num_p is None else ext_f.mul(num_p, num)
-            den_p = den if den_p is None else ext_f.mul(den_p, den)
-        nums.append(num_p)
-        dens.append(den_p)
-    stack = lambda ps, i: torch.stack([p[i] for p in ps])  # noqa: E731
-    return (stack(nums, 0), stack(nums, 1)), (stack(dens, 0), stack(dens, 1))
+from .quotient_sweep import chunk_columns, chunk_num_den
 
 
 def z_and_partials(num_all, den_inv_all):

@@ -11,7 +11,7 @@ from ..cs.gates.base import TermsCollector
 from ..field import extension as ext_f
 from ..field import gl
 from ..merkle import verify_proof_over_cap
-from ..transcript import BitSource, make_transcript
+from ..transcript import BitSource, Poseidon2Transcript
 from .fri import _brev, fold_schedule, fri_verify_queries
 from .pow import pow_verify
 from .quotient_sweep import chunk_columns
@@ -49,7 +49,7 @@ def verify(vk, proof, gates) -> bool:
     n = vk.trace_len
     log_n = n.bit_length() - 1
     L = vk.fri_lde_factor
-    Q = vk.effective_quotient_degree()
+    Q = vk.quotient_degree
     log_full = log_n + (L.bit_length() - 1)
     Ct = vk.num_copy_cols
     K = geometry.num_constant_columns
@@ -68,7 +68,7 @@ def verify(vk, proof, gates) -> bool:
         return False
 
     # ---- transcript replay ------------------------------------------------
-    t = make_transcript(vk.transcript)
+    t = Poseidon2Transcript()
     t.witness_merkle_tree_cap(vk.setup_merkle_cap)
     t.witness_field_elements(proof.public_inputs)
     t.witness_merkle_tree_cap(proof.witness_cap)
@@ -82,7 +82,7 @@ def verify(vk, proof, gates) -> bool:
         t.witness_field_elements(v)
     deep_ch = t.get_ext_challenge()
     try:
-        schedule = fold_schedule(n, vk.fri_final_degree, vk.fri_folding_schedule)
+        schedule = fold_schedule(n, vk.fri_final_degree)
     except ValueError:
         return False
     num_folds = sum(schedule)

@@ -54,12 +54,6 @@ class Poseidon2Transcript:
         return (self.get_challenge(), self.get_challenge())
 
 
-def make_transcript(kind: str = "poseidon2") -> Poseidon2Transcript:
-    if kind != "poseidon2":
-        raise ValueError(f"transcript {kind!r} is not ported; use 'poseidon2'")
-    return Poseidon2Transcript()
-
-
 class BitSource:
     """Uniform query-index bits from transcript challenges: only the low
     (64 - max_needed_bits) bits of each challenge are used."""

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of boojum_tpu_torch on one NVIDIA card.
 
-    python3 chip_smoke.py              # the fma-chain slice at 2^20 rows
-    python3 chip_smoke.py --log-n 12   # the same phases at 2^12 rows
+    python3 chip_smoke.py
 
 Phases, each printing its seconds:
-  1. the card's name and power limit (nvidia-smi);
+  1. the card's name and power limit, and its 32-bit integer issue rate
+     (nvidia-smi, torch.cuda);
   2. the build of every CUDA kernel (one nvcc per source, all at once);
   3. every kernel against its plain PyTorch version on the card, word for
      word (tolerance 0: every result is an exact field element), at the
@@ -15,30 +15,49 @@ Phases, each printing its seconds:
      proofs must be the same JSON text, and the port's verifier must accept;
   5. the slice: the bench fma-chain circuit (16 copy columns, 6 constant
      columns, degree 3; LDE 4, cap 16, 50 queries, no PoW, final degree 16)
-     synthesized, set up, proved and verified at 2^log_n rows. The launch
+     synthesized, set up, proved and verified at 2^20 rows. The launch
      counts go to 0 before synthesis and are read after verification; every
-     kernel must have launched on the prove.
+     kernel must have launched on the prove;
+  6. where the time of that prove goes: a warm prove (per-round seconds),
+     then one under torch.profiler. Device time is grouped into the port's
+     CUDA kernels (by kernel), the plain PyTorch work around them (by op)
+     and copies; the idle share is 1 - device busy / wall. One JSON line.
 
-Prints the kernel table as one JSON line, the card line, and as the last line
+Prints the profile line, the kernel table as one JSON line, the card line,
+and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, if any phase
 fails, if no CUDA device is available, or if the package is missing.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT_OPS_PER_S = 67e12  # non-tensor float32 peak; used for 32-bit integer ops
+LOG_N = 20  # the slice: the Era main-VM trace length
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published
+# 32-bit integer multiply-add and add issue per SM per clock on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput); times the SM count and the card's maximum SM clock.
+INT32_PER_SM_CLOCK = 64
 # 32-bit integer instructions per field op (a 64x64 multiply with its
-# reduction; an add, sub or negation with its carry fix-up)
+# reduction; an add, sub or negation with its carry fix-up): an estimate
+# from the instruction sequences of csrc/goldilocks.cuh, not a count
 OPS_PER_MUL = 16
 OPS_PER_ADD = 4
+
+# CUDA kernel function -> the port's kernel it belongs to (phase 6)
+PORT_FUNCTIONS = {
+    "dif_stage": "ntt_forward/ntt_lde", "dif_tail": "ntt_forward/ntt_lde",
+    "dit_head": "ntt_inverse", "dit_stage": "ntt_inverse",
+    "leaf_hash": "poseidon2_leaf", "node_hash": "poseidon2_node",
+    "sweep": "quotient_sweep", "fold": "fri_fold",
+}
+# entries the CUDA tracer adds for its own buffers, not work of the prove
+PROFILER_MARKERS = ("Command Buffer Full", "Activity Buffer Request")
 
 
 def log(msg: str) -> None:
@@ -105,7 +124,14 @@ def max_abs_err(gf, a, b) -> int:
     return max(abs(int(x) - int(y)) for x, y in zip(na[bad], nb[bad]))
 
 
-def kernel_parity(torch, log_n: int, asm_small) -> dict:
+def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def kernel_parity(torch, log_n: int, asm_small, int_ops_per_s: float) -> dict:
     """Every kernel against its plain version at the slice's shapes."""
     from boojum_tpu_torch import kernels as K
     from boojum_tpu_torch.field import goldilocks as gf
@@ -189,7 +215,7 @@ def kernel_parity(torch, log_n: int, asm_small) -> dict:
         ms = timed(torch, kern, 5)
         plain_ms = timed(torch, plain, 1)
         bound_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-        bound_ops = ops.int_ops / INT_OPS_PER_S * 1e3
+        bound_ops = ops.int_ops / int_ops_per_s * 1e3
         lib, replaces = K.KERNELS[name]
         rows[name] = {
             "name": name,
@@ -212,12 +238,53 @@ def kernel_parity(torch, log_n: int, asm_small) -> dict:
     return rows
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--log-n", type=int, default=20,
-                    help="rows of the slice's circuit, as a power of two")
-    args = ap.parse_args(argv)
+def _device_us(evt) -> float:
+    """Device microseconds of a profiler entry's own work."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
 
+
+def profile_prove(torch, prove, asm, setup, cfg) -> dict:
+    """Phase 6: a warm prove, then one under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    warm = {}
+    t = time.perf_counter()
+    prove(asm, setup, cfg, device="cuda", timings=warm)
+    warm_s = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        prove(asm, setup, cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    kernels, plain, copies = {}, {}, 0.0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us <= 0 or evt.key.startswith(("aten::", "cuda") + PROFILER_MARKERS):
+            continue
+        if evt.key.startswith(("Memcpy", "Memset")):
+            copies += us / 1e3
+            continue
+        port = next((v for k, v in PORT_FUNCTIONS.items() if k in evt.key), None)
+        bucket, name = (kernels, port) if port else (plain, evt.key[:80])
+        bucket[name] = bucket.get(name, 0.0) + us / 1e3
+    busy_ms = sum(kernels.values()) + sum(plain.values()) + copies
+    return {
+        "prove_warm_s": warm_s,
+        "rounds_warm_s": warm,
+        "profiled_prove_wall_s": wall_s,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / (wall_s * 1e3),
+        "port_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
+        "plain_torch_ms": sum(plain.values()),
+        "plain_torch_top_ms": dict(sorted(plain.items(), key=lambda kv: -kv[1])[:12]),
+        "copies_ms": copies,
+    }
+
+
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -234,11 +301,13 @@ def main(argv=None) -> int:
     from boojum_tpu_torch.prover import generate_setup, prove, verify
 
     t0 = time.perf_counter()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(f"[1] card: {card} ({time.perf_counter() - t0:.1f} s)")
+    card = nvidia_smi("name,power.limit")
+    max_sm_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops_per_s = sms * INT32_PER_SM_CLOCK * max_sm_mhz * 1e6
+    log(f"[1] card: {card}; {sms} SMs at up to {max_sm_mhz:.0f} MHz: "
+        f"{int_ops_per_s / 1e12:.2f}e12 32-bit integer ops/s "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     t = time.perf_counter()
     built = K.build_all()
@@ -247,8 +316,8 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     asm10 = build_fma(10).into_assembly()
-    log(f"[3] kernels against their plain versions at the 2^{args.log_n} slice's shapes")
-    rows = kernel_parity(torch, args.log_n, asm10)
+    log(f"[3] kernels against their plain versions at the 2^{LOG_N} slice's shapes")
+    rows = kernel_parity(torch, LOG_N, asm10, int_ops_per_s)
     log(f"[3] all {len(rows)} kernels word-exact ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
@@ -267,8 +336,8 @@ def main(argv=None) -> int:
     # the main path: every count goes to 0 here and is read after verify
     K.reset_launches()
     t = time.perf_counter()
-    asm = build_fma(args.log_n).into_assembly()
-    log(f"[5] fma 2^{args.log_n}: synthesis {time.perf_counter() - t:.1f} s")
+    asm = build_fma(LOG_N).into_assembly()
+    log(f"[5] fma 2^{LOG_N}: synthesis {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     setup = generate_setup(asm, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -287,7 +356,7 @@ def main(argv=None) -> int:
         + f"; launches {on_prove}")
     t = time.perf_counter()
     if not verify(setup.vk, proof, asm.gates):
-        raise AssertionError(f"2^{args.log_n} proof rejected by the verifier")
+        raise AssertionError(f"2^{LOG_N} proof rejected by the verifier")
     if len(proof.queries) != cfg.num_queries or not proof.fri_caps:
         raise AssertionError("proof has the wrong shape")
     launches = dict(K.LAUNCHES)
@@ -298,6 +367,15 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels never launched on the prove: {missing}")
     for name, row in rows.items():
         row["launches"] = launches[name]
+
+    t = time.perf_counter()
+    prof = profile_prove(torch, prove, asm, setup, cfg)
+    prof.update(card=card, prove_cold_s=prove_s, rounds_cold_s=timings,
+                peak_device_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[6] warm prove {prof['prove_warm_s']:.3f} s, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle share "
+        f"{prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
+    print(json.dumps({"profile": prof}))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")

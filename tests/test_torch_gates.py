@@ -13,7 +13,9 @@ from boojum_tpu.cs.gates import simple as jsimple
 from boojum_tpu_torch.cs import field_like as tfl
 from boojum_tpu_torch.cs.gate_capture import capture_gate_program
 from boojum_tpu_torch.cs.gates import GATES_BY_NAME
-from boojum_tpu_torch.cs.gates.base import RowView, TermsCollector
+from boojum_tpu_torch.cs.gates.base import Gate, RowView, TermsCollector
+from boojum_tpu_torch.cs.types import CSGeometry
+from boojum_tpu_torch.prover import quotient_sweep as qs
 from torch_port_util import BOUNDARY, rand_words, to_np, to_t
 
 JAX_GATES = {
@@ -62,3 +64,40 @@ def test_captured_program_replays_gate_over_tensors(name):
     assert len(replayed) == len(direct.terms) == gate.num_terms
     for a, b in zip(replayed, direct.terms):
         np.testing.assert_array_equal(to_np(a), to_np(b))
+
+
+class _WitnessGate(Gate):
+    """A gate whose term reads a witness column (not ported)."""
+
+    name = "uses_witness"
+    principal_width = 1
+    witness_width = 1
+    num_terms = 1
+    max_degree = 1
+
+    def evaluate(self, ops, row, dst):
+        dst.push(ops.sub(row.v(0), row.w(0)))
+
+
+class _WideConstGate(Gate):
+    """A gate reading one constant column past the geometry's."""
+
+    name = "wide_const"
+    principal_width = 1
+    num_constants = 6
+    num_terms = 1
+    max_degree = 1
+
+    def evaluate(self, ops, row, dst):
+        dst.push(ops.sub(row.v(0), row.c(5)))
+
+
+@pytest.mark.parametrize("gate,error", [
+    (_WitnessGate, NotImplementedError), (_WideConstGate, ValueError),
+])
+def test_sweep_plan_rejects_loads_outside_the_ported_columns(gate, error):
+    """The encoder refuses what the kernel could only read out of bounds, so
+    the CPU and the card both raise before any sweep runs."""
+    geometry = CSGeometry(16, 1, 6, 3)
+    with pytest.raises(error):
+        qs.SweepPlan([gate.instance()], [[0]], geometry, 16, "cpu")

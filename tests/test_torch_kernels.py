@@ -72,6 +72,19 @@ def test_sweep_and_fold_kernels_match_plain(dev):
         _same(g, w)
 
 
+def test_sweep_rejects_a_short_setup_stack_on_the_card(dev):
+    asm = build_fma(8).into_assembly()
+    _tree, paths = build_selector_tree(asm.gates)
+    plan = qs.SweepPlan(asm.gates, paths, asm.geometry, 16, dev)
+    rng = np.random.default_rng(1)
+    n = 1 << 10
+    args = [_rand(rng, r, n, device=dev) for r in (16, 17, 12, 2)]
+    args += [_rand(rng, n, device=dev) for _ in range(3)]
+    table = qs.sweep_table(plan, (3, 5), (7, 11), (13, 17), list(range(1, 17)), dev)
+    with pytest.raises(ValueError):
+        qs.coset_terms(plan, *args, table)
+
+
 def test_proof_identical_on_card_and_cpu(dev):
     asm = build_fma(10).into_assembly()
     cfg = fma_proof_config()
