@@ -5,4 +5,5 @@ from .simple import (
     FmaGate,
     NopGate,
     PublicInputGate,
+    ReductionGate,
 )

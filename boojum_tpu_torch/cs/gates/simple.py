@@ -1,6 +1,7 @@
-"""The gates of the fma-chain circuit, with the constraints of the JAX
-package's cs/gates/simple.py (era-boojum's fma_gate_without_constant.rs,
-constant_allocator.rs, nop_gate.rs, public_input.rs).
+"""The gates of the fma-chain and sha256 circuits, with the constraints of
+the JAX package's cs/gates/simple.py (era-boojum's
+fma_gate_without_constant.rs, constant_allocator.rs, nop_gate.rs,
+public_input.rs, reduction_gate.rs).
 
 Synthesis resolves every value eagerly as a host int: a constructor computes
 its outputs and places the instance.
@@ -37,6 +38,12 @@ class FmaGate(Gate):
         d = cs.alloc_variable_with_value(value)
         cs.place_gate(FmaGate.instance(), (a, b, c, d), (ca, cc))
         return d
+
+    @staticmethod
+    def enforce_fma(cs, a, b, c, d, coeff_ab=1, coeff_c=1):
+        """Constrain coeff_ab·a·b + coeff_c·c = d over existing variables."""
+        cs.place_gate(FmaGate.instance(), (a, b, c, d),
+                      (coeff_ab % gl.P, coeff_c % gl.P))
 
 
 class ConstantsAllocatorGate(Gate):
@@ -88,6 +95,39 @@ class PublicInputGate(Gate):
         return v
 
 
+class ReductionGate(Gate):
+    """Σ_i coeff_i·x_i = out over four terms."""
+
+    name = "reduction4"
+    principal_width = 5
+    num_constants = 4
+    num_terms = 1
+    max_degree = 1
+
+    def evaluate(self, ops, row, dst):
+        acc = ops.zero()
+        for i in range(4):
+            acc = ops.add(acc, ops.mul(row.v(i), row.c(i)))
+        dst.push(ops.sub(acc, row.v(4)))
+
+    @staticmethod
+    def reduce(cs, vars4, coeffs4):
+        """Allocate and constrain out = Σ coeffs4[i]·vars4[i]."""
+        cf = tuple(c % gl.P for c in coeffs4)
+        val = cs.values
+        value = sum(c * val[v >> 1] for v, c in zip(vars4, cf)) % gl.P
+        out = cs.alloc_variable_with_value(value)
+        cs.place_gate(ReductionGate.instance(), (*vars4, out), cf)
+        return out
+
+    @staticmethod
+    def enforce_reduce(cs, vars4, coeffs4, out):
+        """Constrain Σ coeffs4[i]·vars4[i] = out over existing variables."""
+        cs.place_gate(ReductionGate.instance(), (*vars4, out),
+                      tuple(c % gl.P for c in coeffs4))
+
+
 GATES_BY_NAME = {
-    g.name: g for g in (FmaGate, ConstantsAllocatorGate, NopGate, PublicInputGate)
+    g.name: g
+    for g in (FmaGate, ConstantsAllocatorGate, NopGate, PublicInputGate, ReductionGate)
 }

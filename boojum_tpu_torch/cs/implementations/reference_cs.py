@@ -7,9 +7,15 @@ of its (gate, constants) key until the row holds num_repetitions instances;
 the trace up to a power of two with NOP rows. Placement data is dense numpy
 (column-major (cols, rows) place ids, -1 vacant).
 
+Lookups use specialized columns (era-boojum lookup_placement.rs): every
+enforced tuple is recorded, and at freeze the tuples are packed R to a row,
+grouped by table, into R·width dedicated copy columns beside a table-id
+column; vacant slots take a padding tuple (the table's row 0) whose
+multiplicity is counted, so the log-derivative sums balance.
+
 Differences: every value is resolved eagerly as a host int when its
-variable is allocated, so there is no resolver; there are no lookups and no
-witness columns (the fma-chain slice uses neither).
+variable is allocated, so there is no resolver; there are no witness
+columns and no general-mode lookups (the sha256 slice uses neither).
 """
 
 from __future__ import annotations
@@ -19,13 +25,17 @@ import numpy as np
 from ...field import gl
 from ..gates.base import Gate
 from ..gates.simple import ConstantsAllocatorGate, NopGate
-from ..types import CSGeometry
+from ..types import CSGeometry, LookupParameters
 
 
 class ConstraintSystem:
-    def __init__(self, geometry: CSGeometry, max_trace_len: int):
+    def __init__(self, geometry: CSGeometry, max_trace_len: int,
+                 lookup_params: LookupParameters | None = None):
         if geometry.num_witness_columns:
             raise NotImplementedError("witness columns are not ported yet")
+        self.lookup_params = lookup_params or LookupParameters()
+        if self.lookup_params.is_enabled and not self.lookup_params.use_specialized_columns:
+            raise NotImplementedError("general-mode lookups are not ported yet")
         self.geometry = geometry
         self.max_trace_len = max_trace_len
         self.values: list[int] = []  # value of variable k
@@ -40,6 +50,10 @@ class ConstraintSystem:
         self.public_inputs: list[tuple[int, int]] = []
         self._constants_cache: dict[int, int] = {}
         self.trace_len = None
+        self.lookup_tables: list = []
+        self._table_by_name: dict[str, int] = {}
+        self.lookup_rows: list[tuple[int, list[int]]] = []  # (table id, places)
+        self.lookup_multiplicities: dict[tuple[int, int], int] = {}
 
     # -- allocation ---------------------------------------------------------
 
@@ -47,11 +61,29 @@ class ConstraintSystem:
         self.values.append(int(value) % gl.P)
         return (len(self.values) - 1) << 1
 
+    def alloc_multiple_variables_without_values(self, n: int) -> list[int]:
+        """n fresh variables, valued later by set_values_with_dependencies."""
+        base = len(self.values)
+        self.values.extend([0] * n)
+        return [(base + i) << 1 for i in range(n)]
+
+    def alloc_variable_without_value(self) -> int:
+        return self.alloc_multiple_variables_without_values(1)[0]
+
+    def set_values_with_dependencies(self, ins, outs, fn):
+        """Value `outs` as fn(values of `ins`), at once."""
+        vals = fn([self.values[p >> 1] for p in ins])
+        for p, v in zip(outs, vals):
+            self.values[p >> 1] = int(v) % gl.P
+
     def get_value(self, place: int) -> int:
         return self.values[place >> 1]
 
     def zero_var(self) -> int:
         return self.allocate_constant(0)
+
+    def one_var(self) -> int:
+        return self.allocate_constant(1)
 
     def allocate_constant(self, value: int) -> int:
         """A variable pinned to a constant; one per distinct value."""
@@ -102,6 +134,54 @@ class ConstraintSystem:
     def set_public(self, column: int, row: int):
         self.public_inputs.append((column, row))
 
+    # -- lookups (specialized columns) ---------------------------------------
+
+    def add_lookup_table(self, table) -> int:
+        """Register a table; returns its id (ids start at 1)."""
+        if table.name in self._table_by_name:
+            raise ValueError(f"table {table.name} is already registered")
+        self.lookup_tables.append(table)
+        self._table_by_name[table.name] = len(self.lookup_tables)
+        return len(self.lookup_tables)
+
+    def ensure_table(self, name: str, make_table) -> int:
+        """The id of table `name`, registering make_table() first if absent."""
+        if name not in self._table_by_name:
+            self.add_lookup_table(make_table())
+        return self._table_by_name[name]
+
+    def get_table_id(self, name: str) -> int:
+        return self._table_by_name[name]
+
+    def get_table(self, table_id: int):
+        return self.lookup_tables[table_id - 1]
+
+    def enforce_lookup(self, table_id: int, keys: list[int]):
+        """Constrain the tuple of places `keys` to be a row of the table and
+        count that row's use. Tuples narrower than the argument are padded
+        with the zero variable."""
+        params = self.lookup_params
+        if not params.is_enabled:
+            raise ValueError("lookups are not configured")
+        table = self.get_table(table_id)
+        if len(keys) != table.width or table.width > params.width:
+            raise ValueError(f"table {table.name}: tuple of {len(keys)} places")
+        keys = list(keys)
+        while len(keys) < params.width:
+            keys.append(self.zero_var())
+        self.lookup_rows.append((table_id, keys))
+        row = table.row_index([self.values[p >> 1] for p in keys[: table.width]])
+        key = (table_id, row)
+        self.lookup_multiplicities[key] = self.lookup_multiplicities.get(key, 0) + 1
+
+    def perform_lookup(self, table_id: int, key_places: list[int]) -> list[int]:
+        """Allocate the table's values for the key variables and enforce."""
+        table = self.get_table(table_id)
+        outs = self.alloc_multiple_variables_without_values(table.num_values)
+        self.set_values_with_dependencies(list(key_places), outs, table.lookup_values)
+        self.enforce_lookup(table_id, list(key_places) + outs)
+        return outs
+
     # -- freeze -------------------------------------------------------------
 
     def pad_and_shrink(self) -> int:
@@ -125,7 +205,17 @@ class ConstraintSystem:
                         self.copy_placement[off + i, row] = p
                     used += 1
                 tool[1] = used
-        rows = max(self.next_row, 1)
+        # rows the lookup columns need: R tuples a row, one table per row
+        lookup_rows_needed = 0
+        if self.lookup_rows:
+            R = self.lookup_params.num_repetitions
+            per_table: dict[int, int] = {}
+            for tid, _ in self.lookup_rows:
+                per_table[tid] = per_table.get(tid, 0) + 1
+            lookup_rows_needed = sum((c + R - 1) // R for c in per_table.values())
+        # the stacked table content must fit the trace too
+        table_rows = sum(len(t) for t in self.lookup_tables)
+        rows = max(self.next_row, lookup_rows_needed, table_rows, 1)
         n = 1 << max(3, (rows - 1).bit_length())
         if n > self.max_trace_len:
             raise ValueError(f"trace of {n} rows exceeds {self.max_trace_len}")
@@ -135,12 +225,87 @@ class ConstraintSystem:
         self.trace_len = n
         return n
 
+    def _place_lookups(self, n: int):
+        """Pack the recorded tuples into the specialized columns.
+
+        Returns (placement (R·w, n) int64, table-id column (n,) uint64).
+        Per table in id order, R tuples a row; a row's vacant slots, and
+        every row after the last, take the table's padding tuple (fresh
+        variables valued as its row 0; table 1 for the empty rows), and
+        each padding slot adds one to the multiplicity of row 0."""
+        R = self.lookup_params.num_repetitions
+        w = self.lookup_params.width
+        placement = np.full((R * w, n), -1, dtype=np.int64)
+        table_id_col = np.zeros(n, dtype=np.uint64)
+        pad_tuples: dict[int, list[int]] = {}
+
+        def padding_tuple(tid: int) -> list[int]:
+            tup = pad_tuples.get(tid)
+            if tup is None:
+                table = self.get_table(tid)
+                row0 = [int(v) for v in table.content[0]] + [0] * (w - table.width)
+                tup = self.alloc_multiple_variables_without_values(w)
+                for p, v in zip(tup, row0):
+                    self.values[p >> 1] = v
+                pad_tuples[tid] = tup
+            return tup
+
+        def bump_padding(tid: int, times: int):
+            if times:
+                key = (tid, 0)
+                self.lookup_multiplicities[key] = (
+                    self.lookup_multiplicities.get(key, 0) + times
+                )
+
+        by_table: dict[int, list[list[int]]] = {}
+        for tid, places in self.lookup_rows:
+            by_table.setdefault(tid, []).append(places)
+        row = 0
+        for tid in sorted(by_table):
+            tuples = by_table[tid]
+            for i in range(0, len(tuples), R):
+                chunk = tuples[i : i + R]
+                pad = R - len(chunk)
+                if pad:
+                    chunk = chunk + [padding_tuple(tid)] * pad
+                    bump_padding(tid, pad)
+                table_id_col[row] = tid
+                for s, places in enumerate(chunk):
+                    placement[s * w : (s + 1) * w, row] = places
+                row += 1
+        if row < n and self.lookup_tables:
+            tup = np.array(padding_tuple(1), dtype=np.int64)
+            table_id_col[row:] = 1
+            for s in range(R):
+                placement[s * w : (s + 1) * w, row:] = tup[:, None]
+            bump_padding(1, (n - row) * R)
+        return placement, table_id_col
+
     def into_assembly(self) -> "CSAssembly":
         n = self.trace_len or self.pad_and_shrink()
-        placement = self.copy_placement[:, :n]
+        lookups_on = self.lookup_params.is_enabled and bool(self.lookup_tables)
+        if lookups_on:
+            lookup_placement, table_id_col = self._place_lookups(n)
+        else:
+            lookup_placement = np.zeros((0, n), dtype=np.int64)
+            table_id_col = None
         values = np.array(self.values, dtype=np.uint64)
-        cols = values[np.where(placement >= 0, placement >> 1, 0)]
-        cols[placement < 0] = 0
+
+        def scatter(placement):
+            cols = values[np.where(placement >= 0, placement >> 1, 0)]
+            cols[placement < 0] = 0
+            return cols
+
+        placement = self.copy_placement[:, :n]
+        multiplicities = table_stack = None
+        if lookups_on:
+            offsets = np.cumsum([0] + [len(t) for t in self.lookup_tables])
+            if offsets[-1] > n:
+                raise ValueError("stacked lookup tables exceed the trace length")
+            multiplicities = np.zeros(n, dtype=np.uint64)
+            for (tid, row), cnt in self.lookup_multiplicities.items():
+                multiplicities[offsets[tid - 1] + row] = cnt
+            table_stack = stack_tables(self.lookup_tables, self.lookup_params.width, n)
         return CSAssembly(
             geometry=self.geometry,
             trace_len=n,
@@ -148,19 +313,43 @@ class ConstraintSystem:
             row_gate=self.row_gate[:n].copy(),
             gate_constants=dict(self.gate_constants),
             copy_placement=placement.copy(),
-            copy_cols_values=cols,
+            copy_cols_values=scatter(placement),
             public_inputs=[
                 (c, r, self.get_value(int(self.copy_placement[c, r])))
                 for (c, r) in self.public_inputs
             ],
+            lookup_params=self.lookup_params,
+            lookup_placement=lookup_placement,
+            lookup_cols_values=scatter(lookup_placement),
+            lookup_table_id_col=table_id_col,
+            multiplicities=multiplicities,
+            table_stack=table_stack,
+            num_lookup_tables=len(self.lookup_tables) if lookups_on else 0,
         )
 
 
+def stack_tables(tables, width: int, n: int) -> np.ndarray:
+    """(width + 1, n): the tables' columns zero-padded to `width`, then the
+    table-id column, stacked over the tables in id order."""
+    cols = np.zeros((width + 1, n), dtype=np.uint64)
+    off = 0
+    for tid, t in enumerate(tables, start=1):
+        cols[: t.width, off : off + len(t)] = t.content.T
+        cols[width, off : off + len(t)] = tid
+        off += len(t)
+    return cols
+
+
 class CSAssembly:
-    """Frozen, provable CS: placement, witness columns, gates, public inputs."""
+    """Frozen, provable CS: placement, column values, gates, public inputs
+    and, with lookups, the specialized columns, multiplicities and the
+    stacked tables."""
 
     def __init__(self, *, geometry, trace_len, gates, row_gate, gate_constants,
-                 copy_placement, copy_cols_values, public_inputs):
+                 copy_placement, copy_cols_values, public_inputs,
+                 lookup_params=None, lookup_placement=None, lookup_cols_values=None,
+                 lookup_table_id_col=None, multiplicities=None, table_stack=None,
+                 num_lookup_tables=0):
         self.geometry = geometry
         self.trace_len = trace_len
         self.gates = gates
@@ -169,7 +358,48 @@ class CSAssembly:
         self.copy_placement = copy_placement
         self.copy_cols_values = copy_cols_values
         self.public_inputs = public_inputs
+        self.lookup_params = lookup_params or LookupParameters()
+        if lookup_placement is None:
+            lookup_placement = np.zeros((0, trace_len), dtype=np.int64)
+            lookup_cols_values = np.zeros((0, trace_len), dtype=np.uint64)
+        self.lookup_placement = lookup_placement
+        self.lookup_cols_values = lookup_cols_values
+        self.lookup_table_id_col = lookup_table_id_col
+        self.multiplicities = multiplicities
+        self.table_stack = table_stack
+        self.num_lookup_tables = num_lookup_tables
 
     @property
     def num_copy_cols(self) -> int:
+        """General-purpose copy columns (gates live here)."""
         return self.geometry.num_columns_under_copy_permutation
+
+    @property
+    def num_lookup_cols(self) -> int:
+        """Specialized lookup copy columns, after the general ones."""
+        return self.lookup_placement.shape[0]
+
+    @property
+    def num_copy_cols_total(self) -> int:
+        return self.num_copy_cols + self.num_lookup_cols
+
+    @property
+    def lookup_mode(self) -> str:
+        """'none' or 'specialized' (general mode is not ported)."""
+        if not self.lookup_params.is_enabled or not self.num_lookup_tables:
+            return "none"
+        return "specialized"
+
+    @property
+    def lookups_enabled(self) -> bool:
+        return self.lookup_mode != "none"
+
+    @property
+    def num_lookup_subargs(self) -> int:
+        return self.lookup_params.num_repetitions if self.lookups_enabled else 0
+
+    def stacked_table_columns(self, width: int) -> np.ndarray:
+        """(width + 1, n) table setup columns (see stack_tables)."""
+        if self.table_stack is None or self.table_stack.shape[0] != width + 1:
+            raise ValueError(f"no stacked tables of width {width}")
+        return self.table_stack

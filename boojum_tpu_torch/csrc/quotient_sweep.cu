@@ -1,10 +1,11 @@
-// Per-coset quotient terms: gate constraints plus the copy permutation, in
-// GF(p^2), times 1/Z_H.
+// Per-coset quotient terms: gate constraints, the copy permutation and the
+// specialized-column lookup argument, in GF(p^2), times 1/Z_H.
 //
 // Replaces the Pallas kernel boojum_tpu/prover/pallas_sweep.py
 // build_coset_terms (body assembled by _tiled_ext_call): the gate part
-// (_gate_terms, packed-op replay _scan_replay) and the copy-permutation part
-// (_cp_terms). The lookup part (_lookup_terms) is not ported yet. The TPU
+// (_gate_terms, packed-op replay _scan_replay), the copy-permutation part
+// (_cp_terms) and the specialized lookup part (_lookup_terms); its general
+// lookup mode is not ported. The TPU
 // kernel traces every gate into the kernel body on (lo, hi) u32 planes; here
 // one thread evaluates one coset row with 64-bit words, replaying each
 // gate's captured op program from a table, so a new gate or a new
@@ -18,7 +19,13 @@
 // chip_smoke.py counts them): about 14 per byte, nearly three times the
 // card's ratio of integer issue rate to memory rate. The table and the
 // challenge powers are read by every thread at the same address and stay in
-// cache. The interpreter keeps its slots in a small per-thread array.
+// cache. The interpreter keeps its slots in a small per-thread array. The
+// lookup terms share the row's stage-2 reads and the one 1/Z_H multiply, so
+// they run in the same launch: per sub-argument i,
+// A_i·(Σ_j γ'^j·w_{i,j} + γ'^w·tid + β') - 1, then for the table
+// B·(Σ_j γ'^j·t_j + γ'^w·t_id + β') - M, where β' + γ'^w·tid is computed
+// once per row. At the sha256 widths (92 copy columns, 8 sub-arguments of
+// width 4) the row reads 93 witness, 106 setup and 46 stage-2 words.
 //
 // Program table (int32), per gate with quotient terms, in gate order:
 //   path_len, path bits..., reps, principal_width, const_off, num_slots,
@@ -27,8 +34,14 @@
 //   num_ops, (opcode 0=add 1=sub 2=mul 3=neg 4=double, dst, a, b)...,
 //   num_terms, term slots...
 // preceded by the gate count. Kind 1 (a witness column) is refused by the
-// encoder on the host until witness columns are ported. Scalar table (uint64): beta (2), gamma (2),
-// the non-residues (Ct), then the alpha powers as c0 (T) and c1 (T).
+// encoder on the host until witness columns are ported. Scalar table
+// (uint64): beta (2), gamma (2), the non-residues (Ct), then the alpha powers
+// as c0 (T) and c1 (T); with lookups (R > 0) then beta' (2) and the powers
+// gamma'^0..gamma'^width as (c0, c1) pairs.
+//
+// Operands: wit rows [general copy (Cg) | lookup copy (R·width) | M]; setup
+// rows [sigma (Ct) | constants (num_consts, the table id last) | table
+// columns (width + 1)]; s2 rows [z | partials | A_i pairs | B pair].
 #include "goldilocks.cuh"
 
 namespace {
@@ -47,8 +60,9 @@ __global__ void sweep(const uint64_t* __restrict__ wit,
                       const uint64_t* __restrict__ zhinv,
                       const uint64_t* __restrict__ table,
                       const int* __restrict__ prog,
-                      const uint64_t* __restrict__ kvals, int Ct,
-                      int chunk_deg, int num_alpha, size_t n,
+                      const uint64_t* __restrict__ kvals, int Cg, int Ct,
+                      int num_consts, int chunk_deg, int num_alpha, int R,
+                      int width, size_t n,
                       uint64_t* __restrict__ out0,
                       uint64_t* __restrict__ out1) {
   const size_t row = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -149,6 +163,38 @@ __global__ void sweep(const uint64_t* __restrict__ wit,
     ++t;
     prev = lhs;
   }
+
+  // ---- lookup terms (specialized columns) ----
+  if (R > 0) {
+    const uint64_t* lk = a1 + num_alpha;  // beta', then gamma'^j pairs
+    const uint64_t* gp = lk + 2;
+    const Ext lbeta{lk[0], lk[1]};
+    const size_t ab = size_t(2 * num_chunks);  // first A row of s2
+    const uint64_t tid = consts[size_t(num_consts - 1) * n + row];
+    const Ext base =
+        gl::ext_add(lbeta, gl::ext_mul_base(Ext{gp[2 * width], gp[2 * width + 1]}, tid));
+    for (int i = 0; i < R; ++i, ++t) {
+      Ext den = base;
+      for (int j = 0; j < width; ++j) {
+        const uint64_t v = wit[size_t(Cg + i * width + j) * n + row];
+        den = gl::ext_add(den, gl::ext_mul_base(Ext{gp[2 * j], gp[2 * j + 1]}, v));
+      }
+      const Ext a{s2[(ab + 2 * i) * n + row], s2[(ab + 2 * i + 1) * n + row]};
+      Ext term = gl::ext_mul(a, den);
+      term.c0 = gl::sub(term.c0, 1);
+      acc = gl::ext_add(acc, gl::ext_mul(term, Ext{a0[t], a1[t]}));
+    }
+    const uint64_t* tab = consts + size_t(num_consts) * n;  // table columns
+    Ext den = lbeta;
+    for (int j = 0; j <= width; ++j) {
+      const uint64_t v = tab[size_t(j) * n + row];
+      den = gl::ext_add(den, gl::ext_mul_base(Ext{gp[2 * j], gp[2 * j + 1]}, v));
+    }
+    const Ext b{s2[(ab + 2 * R) * n + row], s2[(ab + 2 * R + 1) * n + row]};
+    Ext term = gl::ext_mul(b, den);
+    term.c0 = gl::sub(term.c0, wit[size_t(Ct) * n + row]);
+    acc = gl::ext_add(acc, gl::ext_mul(term, Ext{a0[t], a1[t]}));
+  }
   out0[row] = gl::mul(acc.c0, zhinv[row]);
   out1[row] = gl::mul(acc.c1, zhinv[row]);
 }
@@ -159,11 +205,13 @@ extern "C" cudaError_t bt_quotient_sweep(
     const uint64_t* wit, const uint64_t* setup, const uint64_t* s2,
     const uint64_t* zs, const uint64_t* xs, const uint64_t* l0,
     const uint64_t* zhinv, const uint64_t* table, const int* prog,
-    const uint64_t* kvals, int Ct, int chunk_deg, int num_alpha, long long n,
-    uint64_t* out0, uint64_t* out1, cudaStream_t stream) {
+    const uint64_t* kvals, int Cg, int Ct, int num_consts, int chunk_deg,
+    int num_alpha, int R, int width, long long n, uint64_t* out0,
+    uint64_t* out1, cudaStream_t stream) {
   const unsigned blocks = unsigned((size_t(n) + kThreads - 1) / kThreads);
   sweep<<<blocks, kThreads, 0, stream>>>(wit, setup, s2, zs, xs, l0, zhinv,
-                                         table, prog, kvals, Ct, chunk_deg,
-                                         num_alpha, size_t(n), out0, out1);
+                                         table, prog, kvals, Cg, Ct,
+                                         num_consts, chunk_deg, num_alpha, R,
+                                         width, size_t(n), out0, out1);
   return cudaGetLastError();
 }

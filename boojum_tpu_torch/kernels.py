@@ -67,8 +67,8 @@ _SIGNATURES = {
     },
     "quotient_sweep": {
         "bt_quotient_sweep": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
-            _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _LL, _P, _P, _P,
         ),
     },
     "fri_fold": {

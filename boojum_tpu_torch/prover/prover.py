@@ -1,17 +1,21 @@
 """The 5-round IOP prover on one device (the JAX package's prover.py
-_prove_impl, meshless and materialized, without lookups).
+_prove_impl, meshless and materialized, with specialized-column lookups).
 
 Rounds (the transcript order is the protocol; the verifier replays it):
   0. absorb the setup cap and the public inputs
-  1. commit the witness columns (monomials -> coset LDE -> Merkle) ... beta, gamma
-  2. commit stage 2 (copy-permutation z and partial products)      ... alpha
+  1. commit the witness columns (monomials -> coset LDE -> Merkle)
+                                     ... beta, gamma (+ lookup beta', gamma')
+  2. commit stage 2 (copy-permutation z and partial products, lookup A_i
+     and B)                                                       ... alpha
   3. commit the quotient chunks (per-coset sweep, interpolate)    ... z
-  4. absorb the evaluations at z (z·omega for the grand product)  ... DEEP
+  4. absorb the evaluations at z, z·omega (the grand product) and 0 (the
+     lookup polynomials)                                          ... DEEP
   5. DEEP codeword -> FRI -> proof of work -> query openings
 
-Oracles: witness [copy columns]; setup [sigma | constants]; stage 2
-[z | partials], each ext polynomial as its (c0, c1) base column pair;
-quotient [q_0 c0, q_0 c1, ...]. Every polynomial op runs on the device: the
+Oracles: witness [general copy | lookup copy | multiplicities]; setup
+[sigma | constants | table-id | table columns]; stage 2 [z | partials |
+A_i | B], each ext polynomial as its (c0, c1) base column pair; quotient
+[q_0 c0, q_0 c1, ...]. Every polynomial op runs on the device: the
 kernels carry the NTTs, LDEs, Merkle hashing, quotient sweep and FRI folds,
 plain PyTorch the rest; the host runs the transcript and assembles queries.
 
@@ -50,7 +54,7 @@ from .fri import fri_prove
 from .pow import pow_grind
 from .proof import OracleQuery, Proof, SingleRoundQueries
 from .quotient_sweep import SweepPlan, coset_terms, sweep_table
-from .stages import stage2_columns
+from .stages import compute_lookup_polys, stage2_columns
 
 
 @lru_cache(maxsize=4)
@@ -79,6 +83,16 @@ def _domain_tables(log_n: int, lde_factor: int, device: str):
     # L0(x) = (x^n - 1) / (n (x - 1))
     l0 = gf.mul(gf.mul(per_coset(zh), gl.inv(n)), gf.batch_inverse(gf.sub(xs, 1)))
     return xs, l0, per_coset(zh_inv)
+
+
+@lru_cache(maxsize=4)
+def _inv_xs(log_n: int, lde_factor: int, device: str):
+    """1/x over the rate-`lde_factor` domain, bit-reversed like
+    _domain_tables: x^-1 = g^-1·w^-k, built on the device."""
+    log_full = log_n + lde_factor.bit_length() - 1
+    w_inv = gl.inv(gl.omega(log_full))
+    return gf.mul(gf.powers(w_inv, 1 << log_full, device),
+                  gl.inv(gl.MULTIPLICATIVE_GENERATOR))[bitreverse_indices(log_full, device)]
 
 
 def _commit(values_or_mono, L, cap, from_values=True):
@@ -125,7 +139,11 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     N = n * L
     cap = config.merkle_tree_cap_size
     geometry = assembly.geometry
-    Ct = assembly.copy_placement.shape[0]
+    Cg = assembly.num_copy_cols
+    Ct = assembly.num_copy_cols_total
+    lookups = assembly.lookups_enabled
+    lp = assembly.lookup_params
+    R = assembly.num_lookup_subargs
     Q = setup.vk.quotient_degree
     omega = gl.omega(log_n)
 
@@ -138,22 +156,41 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
 
     # ---- round 1: witness commitment -------------------------------------
     clock.start("round1_witness_commit")
-    copy_vals = gf.from_numpy(assembly.copy_cols_values, device)
-    wit_mono, wit_lde, wit_tree = _commit(copy_vals, L, cap)
+    host_cols = [assembly.copy_cols_values]
+    if lookups:
+        host_cols += [assembly.lookup_cols_values, assembly.multiplicities[None, :]]
+    wit_vals = gf.from_numpy(np.concatenate(host_cols, axis=0), device)
+    wit_mono, wit_lde, wit_tree = _commit(wit_vals, L, cap)
     t.witness_merkle_tree_cap(wit_tree.get_cap())
     checkpoint(1, "witness_cap", wit_tree.get_cap())
     beta = t.get_ext_challenge()
     gamma = t.get_ext_challenge()
-    checkpoint(1, "challenges", [beta, gamma])
+    challenges = [beta, gamma]
+    lookup_beta = lookup_gamma = None
+    if lookups:
+        lookup_beta = t.get_ext_challenge()
+        lookup_gamma = t.get_ext_challenge()
+        challenges += [lookup_beta, lookup_gamma]
+    checkpoint(1, "challenges", challenges)
 
     # ---- round 2: copy-permutation stage 2 -------------------------------
     clock.start("round2_stage2_commit")
     s2_vals = stage2_columns(
-        copy_vals, gf.from_numpy(setup.sigma_cols, device), setup.non_residues,
+        wit_vals[:Ct], gf.from_numpy(setup.sigma_cols, device), setup.non_residues,
         powers_device(omega, n, device), beta, gamma,
         geometry.max_allowed_constraint_degree,
     )
-    del copy_vals
+    if lookups:
+        a_polys, b_poly = compute_lookup_polys(
+            wit_vals[Cg:Ct], gf.from_numpy(setup.constant_cols[-1], device),
+            gf.from_numpy(assembly.stacked_table_columns(lp.width), device),
+            wit_vals[Ct], lookup_beta, lookup_gamma, R, lp.width,
+        )
+        s2_vals = torch.cat(
+            [s2_vals, torch.stack([c for p in [*a_polys, b_poly] for c in p])]
+        )
+        del a_polys, b_poly
+    del wit_vals
     s2_mono, s2_lde, s2_tree = _commit(s2_vals, L, cap)
     del s2_vals
     t.witness_merkle_tree_cap(s2_tree.get_cap())
@@ -166,8 +203,10 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     zs_mono = gf.mul(s2_mono[:2], powers_device(omega, n, device))  # z(w·x)
     xs_q, l0_q, zh_inv_q = _domain_tables(log_n, Q, str(device))
     scale_q = lde_scale_rows(log_n, Q, device)
-    plan = SweepPlan(assembly.gates, setup.selector_paths, geometry, Ct, device)
-    table = sweep_table(plan, alpha, beta, gamma, setup.non_residues, device)
+    plan = SweepPlan(assembly.gates, setup.selector_paths, geometry, Ct, device,
+                     lp if lookups else None)
+    table = sweep_table(plan, alpha, beta, gamma, setup.non_residues, device,
+                        lookup_beta, lookup_gamma)
     parts0, parts1 = [], []
     for c in range(Q):
         row = scale_q[c]
@@ -210,8 +249,13 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     values_at_z_omega = [
         (int(a), int(b)) for a, b in zip(gf.to_numpy(evw0), gf.to_numpy(evw1))
     ]
+    # the lookup polynomials at 0 are their constant monomial coefficients
+    ab = 2 * plan.num_chunks
     values_at_0 = []
-    for v in values_at_z + values_at_z_omega:
+    if lookups:
+        c0 = gf.to_numpy(s2_mono[ab:, 0])
+        values_at_0 = [(int(c0[2 * i]), int(c0[2 * i + 1])) for i in range(R + 1)]
+    for v in values_at_z + values_at_z_omega + values_at_0:
         t.witness_field_elements(v)
     checkpoint(4, "evaluations", [values_at_z, values_at_z_omega, values_at_0])
     deep_ch = t.get_ext_challenge()
@@ -219,13 +263,13 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
 
     # ---- round 5: DEEP + FRI ---------------------------------------------
     clock.start("round5_deep_fri")
-    wit_flat = wit_lde.reshape(Ct, N)
+    wit_flat = wit_lde.reshape(-1, N)
     setup_flat = setup.setup_lde.reshape(-1, N)
     s2_flat = s2_lde.reshape(-1, N)
     q_flat = q_lde.reshape(2 * Q, N)
     h = _deep_codeword(
         [wit_flat, setup_flat, s2_flat, q_flat], assembly, log_n, L, device,
-        values_at_z, values_at_z_omega, z_chal, zw, deep_ch, omega, B,
+        values_at_z, values_at_z_omega, values_at_0, ab, z_chal, zw, deep_ch, omega, B,
     )
     fri = fri_prove(h, t, config, n, checkpoint)
     del h
@@ -305,14 +349,16 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
 
 
 def _deep_codeword(sources, assembly, log_n, L, device, values_at_z,
-                   values_at_z_omega, z, zw, deep_ch, omega, B):
+                   values_at_z_omega, values_at_0, ab, z, zw, deep_ch, omega, B):
     """h(x) = Σ_i ch^i (f_i(x) - f_i(z)) / (x - z)
             + Σ_{i<2} ch^(B+i) (z_i(x) - z_i(zw)) / (x - zw)
-            + Σ_k ch^(B+2+k) (w_col(x) - pi_k) / (x - w^row_k),
+            + Σ_i ch^(B+2+i) (f_i(x) - f_i(0)) / x  (A_i and B, from row ab)
+            + Σ_k ch^(B+2+lk+k) (w_col(x) - pi_k) / (x - w^row_k),
     over the full LDE domain (bit-reversed), as an ext pair."""
     xs, _l0, _zh = _domain_tables(log_n, L, str(device))
     num_pi = len(assembly.public_inputs)
-    pows = ext_f.powers_s(deep_ch, B + 2 + num_pi)
+    num_lk = len(values_at_0)
+    pows = ext_f.powers_s(deep_ch, B + 2 + num_lk + num_pi)
     # 1/(x - z) and 1/(x - zw) in one stacked batch inversion
     d0 = torch.stack([gf.sub(xs, z[0]), gf.sub(xs, zw[0])])
     d1 = torch.stack([
@@ -342,13 +388,18 @@ def _deep_codeword(sources, assembly, log_n, L, device, values_at_z,
         y = values_at_z_omega[j]
         num = (gf.sub(s2_flat[j], y[0]), torch.full_like(xs, gf.as_i64(gl.neg(y[1]))))
         h = ext_f.add(h, ext_f.mul(ext_f.mul(num, inv_xzw), pows[B + j]))
+    if num_lk:
+        inv_x = _inv_xs(log_n, L, str(device))
+        for i, (y0, y1) in enumerate(values_at_0):
+            num = (gf.sub(s2_flat[ab + 2 * i], y0), gf.sub(s2_flat[ab + 2 * i + 1], y1))
+            h = ext_f.add(h, ext_f.mul(ext_f.mul_by_base(num, inv_x), pows[B + 2 + i]))
     if num_pi:
         wit_flat = sources[0]
         pts = np.array([gl.pow_(omega, r) for (_c, r, _v) in assembly.public_inputs],
                        dtype=np.uint64)
         denoms = gf.batch_inverse(gf.sub(xs[None, :], gf.from_numpy(pts, device)[:, None]))
         for k, (col, _row, value) in enumerate(assembly.public_inputs):
-            ch = pows[B + 2 + k]
+            ch = pows[B + 2 + num_lk + k]
             term = gf.mul(gf.sub(wit_flat[col], value), denoms[k])
             h = ext_f.add(h, (gf.mul(term, ch[0]), gf.mul(term, ch[1])))
     return h

@@ -1,15 +1,18 @@
 """The per-coset quotient sweep (kernel B6, csrc/quotient_sweep.cu).
 
-Replaces boojum_tpu/prover/pallas_sweep.py build_coset_terms (gate and
-copy-permutation parts) and its XLA twin prover.py _u64_sweep_core. For each
-row of one quotient coset it sums, with alpha^t weights in GF(p^2):
+Replaces boojum_tpu/prover/pallas_sweep.py build_coset_terms (gate,
+copy-permutation and specialized lookup parts) and its XLA twin prover.py
+_u64_sweep_core. For each row of one quotient coset it sums, with alpha^t
+weights in GF(p^2):
 - the gate terms of every instance of every gate, masked by the gate's
   selector-path product over the constant columns;
 - L0·(z - 1) and, per chunk of copy columns, lhs·prod(den) - rhs·prod(num)
   with num = w + beta·k·x + gamma, den = w + beta·sigma + gamma;
+- with lookups, per sub-argument i: A_i·(Σ_j γ'^j·w_{i,j} + γ'^w·tid + β') - 1,
+  and for the table: B·(Σ_j γ'^j·t_j + γ'^w·t_id + β') - M;
 then multiplies by 1/Z_H. Terms take alpha powers in the JAX package's
 order: every gate term first (gate order, instance, term), then the
-copy-permutation terms.
+copy-permutation terms, then the lookup sub-arguments and B.
 
 Gates reach the kernel as data: each gate's captured op program
 (cs/gate_capture.py) is encoded into an int32 table that the kernel and the
@@ -56,6 +59,19 @@ def chunk_num_den(copy_vals, sigma_vals, non_residues, xs, beta, gamma, chunks):
         dens.append(den_p)
     stack = lambda ps, i: torch.stack([p[i] for p in ps])  # noqa: E731
     return (stack(nums, 0), stack(nums, 1)), (stack(dens, 0), stack(dens, 1))
+
+
+def aggregate_lookup_columns(cols, table_id_col, gpow, beta):
+    """Σ_j γ^j·col_j (+ γ^w·table_id) + β over base columns, an ext pair:
+    the log-derivative denominator before inversion. gpow: host ext
+    scalars [1, γ, γ², ...]; beta: a host ext scalar."""
+    acc0 = torch.full_like(cols[0], gf.as_i64(beta[0]))
+    acc1 = torch.full_like(cols[0], gf.as_i64(beta[1]))
+    seq = list(cols) + ([table_id_col] if table_id_col is not None else [])
+    for j, col in enumerate(seq):
+        acc0 = gf.add(acc0, gf.mul(col, gpow[j][0]))
+        acc1 = gf.add(acc1, gf.mul(col, gpow[j][1]))
+    return acc0, acc1
 
 
 def num_gate_terms(gates, geometry) -> int:
@@ -111,29 +127,56 @@ def encode_gate_programs(gates, selector_paths, geometry):
 
 class SweepPlan:
     """The structure of one circuit's sweep: program tables on a device and
-    the counts the kernel needs."""
+    the counts the kernel needs.
 
-    def __init__(self, gates, selector_paths, geometry, num_copy_cols, device):
+    Operand layout: witness rows [general copy (Cg) | lookup copy | M];
+    setup rows [sigma (Ct) | constants (num_consts, the table id last) |
+    table columns (width + 1)]; stage-2 rows [z | partials | A_i | B]. The
+    lookup rows exist only when `lookup_params` is enabled."""
+
+    def __init__(self, gates, selector_paths, geometry, num_copy_cols, device,
+                 lookup_params=None):
         prog, kvals = encode_gate_programs(gates, selector_paths, geometry)
         self.prog_np = prog
         self.kvals_np = kvals
         self.prog = torch.from_numpy(prog).to(device)
         self.kvals = gf.from_numpy(kvals if kvals.size else np.zeros(1, np.uint64),
                                    device)
+        lookups = lookup_params is not None and lookup_params.is_enabled
+        self.Cg = geometry.num_columns_under_copy_permutation
         self.Ct = num_copy_cols
-        self.num_setup_cols = num_copy_cols + geometry.num_constant_columns
+        self.R = lookup_params.num_repetitions if lookups else 0
+        self.width = lookup_params.width if lookups else 0
+        if self.Ct != self.Cg + self.R * self.width:
+            raise ValueError(f"{self.Ct} copy columns do not fit {self.Cg} general "
+                             f"columns and {self.R}x{self.width} lookup columns")
+        self.num_consts = geometry.num_constant_columns + (1 if lookups else 0)
+        self.num_setup_cols = (self.Ct + self.num_consts
+                               + (self.width + 1 if lookups else 0))
+        self.num_wit_rows = self.Ct + (1 if lookups else 0)
         self.chunk_deg = max(1, geometry.max_allowed_constraint_degree)
         self.num_chunks = len(chunk_columns(num_copy_cols, self.chunk_deg))
+        self.num_s2_rows = 2 * self.num_chunks + (2 * (self.R + 1) if lookups else 0)
         self.num_gate_terms = num_gate_terms(gates, geometry)
-        self.num_alpha = self.num_gate_terms + 1 + self.num_chunks
+        self.num_alpha = (self.num_gate_terms + 1 + self.num_chunks
+                          + (self.R + 1 if lookups else 0))
+        self.table_len = (4 + self.Ct + 2 * self.num_alpha
+                          + (2 * (self.width + 2) if lookups else 0))
 
 
-def sweep_table(plan: SweepPlan, alpha, beta, gamma, non_residues, device):
-    """The uint64 scalar table: beta, gamma, non-residues, alpha powers."""
+def sweep_table(plan: SweepPlan, alpha, beta, gamma, non_residues, device,
+                lookup_beta=None, lookup_gamma=None):
+    """The uint64 scalar table: beta, gamma, non-residues, alpha powers (c0
+    then c1) and, with lookups, beta' and the powers gamma'^0..gamma'^w as
+    (c0, c1) pairs."""
     pows = ext_f.powers_s(alpha, plan.num_alpha)
     vals = [beta[0], beta[1], gamma[0], gamma[1]]
     vals += [int(k) for k in non_residues]
     vals += [p[0] for p in pows] + [p[1] for p in pows]
+    if plan.R:
+        vals += [lookup_beta[0], lookup_beta[1]]
+        for g in ext_f.powers_s(lookup_gamma, plan.width + 1):
+            vals += [g[0], g[1]]
     return gf.from_numpy(np.array(vals, dtype=np.uint64), device)
 
 
@@ -146,7 +189,7 @@ def coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table):
     ks = tab[4 : 4 + Ct]
     a0 = tab[4 + Ct : 4 + Ct + plan.num_alpha]
     a1 = tab[4 + Ct + plan.num_alpha :]
-    consts = setup[Ct:]
+    consts = setup[Ct : Ct + plan.num_consts]
     prog = plan.prog_np.tolist()
     kvals = [int(v) for v in plan.kvals_np]
     zero = torch.zeros(n, dtype=torch.int64, device=xs.device)
@@ -217,24 +260,42 @@ def coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table):
         acc = ext_f.add(acc, ext_f.mul(term, (a0[t], a1[t])))
         t += 1
         prev = lhs
+    if plan.R:
+        R, w = plan.R, plan.width
+        lk = tab[4 + Ct + 2 * plan.num_alpha :]
+        lbeta = (lk[0], lk[1])
+        gpow = [(lk[2 + 2 * j], lk[3 + 2 * j]) for j in range(w + 1)]
+        ab = 2 * len(chunks)
+        for i in range(R):
+            cols = [wit[plan.Cg + i * w + j] for j in range(w)]
+            den = aggregate_lookup_columns(cols, consts[plan.num_consts - 1], gpow, lbeta)
+            term = ext_f.mul((s2[ab + 2 * i], s2[ab + 2 * i + 1]), den)
+            term = (gf.sub(term[0], 1), term[1])
+            acc = ext_f.add(acc, ext_f.mul(term, (a0[t], a1[t])))
+            t += 1
+        tcols = setup[Ct + plan.num_consts :]
+        den = aggregate_lookup_columns([tcols[j] for j in range(w)], tcols[w], gpow, lbeta)
+        term = ext_f.mul((s2[ab + 2 * R], s2[ab + 2 * R + 1]), den)
+        term = (gf.sub(term[0], wit[Ct]), term[1])
+        acc = ext_f.add(acc, ext_f.mul(term, (a0[t], a1[t])))
     return gf.mul(acc[0], zhinv), gf.mul(acc[1], zhinv)
 
 
 def coset_terms(plan: SweepPlan, wit, setup, s2, zs, xs, l0, zhinv, table):
     """Quotient terms over one coset: (t0, t1), each (n,) (kernel B6).
 
-    wit (Ct, n), setup (Ct + K, n), s2 (2 + 2·partials, n), zs (2, n) are the
-    coset evaluations of the witness, setup, stage-2 and shifted-z oracles;
+    wit, setup and s2 are the coset evaluations of the witness, setup and
+    stage-2 oracles in the plan's layout, zs (2, n) those of the shifted z;
     xs, l0, zhinv (n,) the coset's x, L0(x) and 1/Z_H(x)."""
     n = xs.shape[0]
     for t, what, rows in (
-        (wit, "witness", plan.Ct), (setup, "setup", plan.num_setup_cols),
-        (s2, "stage 2", 2 * plan.num_chunks), (zs, "shifted z", 2),
+        (wit, "witness", plan.num_wit_rows), (setup, "setup", plan.num_setup_cols),
+        (s2, "stage 2", plan.num_s2_rows), (zs, "shifted z", 2),
     ):
         K.require(t, f"sweep {what}", (rows, n))
     for t, what in ((xs, "xs"), (l0, "L0"), (zhinv, "1/Z_H")):
         K.require(t, f"sweep {what}", (n,))
-    K.require(table, "sweep table", (4 + plan.Ct + 2 * plan.num_alpha,))
+    K.require(table, "sweep table", (plan.table_len,))
     dev = K.same_device(wit, setup, s2, zs, xs, l0, zhinv, table, plan.prog)
     if dev.type == "cpu":
         return coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table)
@@ -247,7 +308,8 @@ def coset_terms(plan: SweepPlan, wit, setup, s2, zs, xs, l0, zhinv, table):
             lib.bt_quotient_sweep(
                 K.ptr(wit), K.ptr(setup), K.ptr(s2), K.ptr(zs), K.ptr(xs),
                 K.ptr(l0), K.ptr(zhinv), K.ptr(table), K.ptr(plan.prog),
-                K.ptr(plan.kvals), plan.Ct, plan.chunk_deg, plan.num_alpha,
+                K.ptr(plan.kvals), plan.Cg, plan.Ct, plan.num_consts,
+                plan.chunk_deg, plan.num_alpha, plan.R, plan.width,
                 n, K.ptr(out0), K.ptr(out1), K.stream(dev),
             ),
             "quotient_sweep",

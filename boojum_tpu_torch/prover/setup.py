@@ -4,7 +4,9 @@ Sigma columns come from a vectorized cycle walk over the copy placement,
 constant columns from the degree-aware selector tree; both are built in
 numpy on the host, then interpolated, low-degree-extended and
 Merkle-committed on the device (kernels B2, B3, B5). Setup column order:
-[sigma (C) | constants (K)].
+[sigma over every copy column, the lookup columns included (C) | constants
+(K, then the table-id column when lookups are on) | stacked table columns
+(width + 1, lookups only)].
 """
 
 from __future__ import annotations
@@ -126,7 +128,44 @@ class VerificationKey:
     setup_merkle_cap: list
     num_copy_cols: int
     num_wit_cols: int
+    lookup_params: object
+    num_lookup_tables: int
     quotient_degree: int
+
+    def to_dict(self) -> dict:
+        """The JAX package's VK JSON fields, in its order."""
+        lp = self.lookup_params
+        g = self.geometry
+        return {
+            "trace_len": self.trace_len,
+            "fri_lde_factor": self.fri_lde_factor,
+            "quotient_degree": self.quotient_degree,
+            "transcript": "poseidon2",
+            "cap_size": self.cap_size,
+            "num_queries": self.num_queries,
+            "pow_bits": self.pow_bits,
+            "fri_final_degree": self.fri_final_degree,
+            "gate_names": list(self.gate_names),
+            "selector_paths": [list(p) for p in self.selector_paths],
+            "public_input_locations": list(self.public_input_locations),
+            "setup_merkle_cap": [list(c) for c in self.setup_merkle_cap],
+            "num_copy_cols": self.num_copy_cols,
+            "num_wit_cols": self.num_wit_cols,
+            "num_lookup_tables": self.num_lookup_tables,
+            "fri_folding_schedule": None,
+            "lookup_params": None if lp is None else {
+                "width": lp.width,
+                "num_repetitions": lp.num_repetitions,
+                "share_table_id": lp.share_table_id,
+                "use_specialized_columns": lp.use_specialized_columns,
+            },
+            "geometry": {
+                "num_columns_under_copy_permutation": g.num_columns_under_copy_permutation,
+                "num_witness_columns": g.num_witness_columns,
+                "num_constant_columns": g.num_constant_columns,
+                "max_allowed_constraint_degree": g.max_allowed_constraint_degree,
+            },
+        }
 
 
 @dataclass
@@ -135,9 +174,9 @@ class SetupData:
 
     vk: VerificationKey
     sigma_cols: np.ndarray  # (C, n) host
-    constant_cols: np.ndarray  # (K, n) host
-    setup_monomials: torch.Tensor  # (C + K, n) device
-    setup_lde: torch.Tensor  # (C + K, lde, n) device
+    constant_cols: np.ndarray  # (K, n) host, the table-id column last
+    setup_monomials: torch.Tensor  # (C + K + T, n) device
+    setup_lde: torch.Tensor  # (C + K + T, lde, n) device
     setup_tree: MerkleTreeWithCap
     selector_paths: list
     non_residues: list
@@ -156,8 +195,14 @@ def quotient_degree_for(assembly, tree) -> int:
 
 def commit_setup(assembly, config, sigma, consts, selector_paths,
                  non_residues, quotient_degree, device) -> SetupData:
-    """Interpolate, extend and commit the setup columns; build the VK."""
-    setup_cols = np.concatenate([sigma, consts], axis=0)
+    """Interpolate, extend and commit the setup columns; build the VK.
+    With lookups, `consts` ends with the table-id column and the assembly's
+    stacked tables follow it."""
+    cols = [sigma, consts]
+    lookups = assembly.lookups_enabled
+    if lookups:
+        cols.append(assembly.stacked_table_columns(assembly.lookup_params.width))
+    setup_cols = np.concatenate(cols, axis=0)
     monomials = monomial_from_values(gf.from_numpy(setup_cols, device))
     lde = lde_from_monomial(monomials, config.fri_lde_factor)
     tree = MerkleTreeWithCap(
@@ -178,6 +223,8 @@ def commit_setup(assembly, config, sigma, consts, selector_paths,
         setup_merkle_cap=tree.get_cap(),
         num_copy_cols=sigma.shape[0],
         num_wit_cols=0,
+        lookup_params=assembly.lookup_params if lookups else None,
+        num_lookup_tables=assembly.num_lookup_tables,
         quotient_degree=quotient_degree,
     )
     return SetupData(
@@ -199,8 +246,12 @@ def generate_setup(assembly, config, device="cuda") -> SetupData:
         raise ValueError("fri_final_degree must be below the trace length")
     tree, selector_paths = build_selector_tree(assembly.gates)
     q = quotient_degree_for(assembly, tree)
-    sigma = compute_sigma_values(assembly.copy_placement)
+    sigma = compute_sigma_values(
+        np.concatenate([assembly.copy_placement, assembly.lookup_placement], axis=0)
+    )
     consts = build_constant_columns(assembly, selector_paths)
+    if assembly.lookups_enabled:
+        consts = np.concatenate([consts, assembly.lookup_table_id_col[None, :]], axis=0)
     return commit_setup(
         assembly, config, sigma, consts, selector_paths,
         non_residues_for_copy_permutation(sigma.shape[0]), q, device,

@@ -1,10 +1,13 @@
-"""Stage 2: the copy-permutation grand product z and its partial products.
+"""Stage 2: the copy-permutation grand product z and its partial products,
+and the lookup polynomials A_i and B.
 
 Plain PyTorch on word tensors (no Pallas kernel carried this stage in the
 JAX package either): per chunk of copy columns the products of
 num = w + beta·k·x + gamma and den = w + beta·sigma + gamma, one batch
 inversion of every chunk denominator, the row ratio, an exclusive prefix
-product for z (z(w^0) = 1) and the cumulative partial products.
+product for z (z(w^0) = 1) and the cumulative partial products. The
+log-derivative lookup polynomials come from the R + 1 aggregated
+denominators, inverted in one stacked batch inversion.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 
 from ..field import extension as ext_f
 from ..field import goldilocks as gf
-from .quotient_sweep import chunk_columns, chunk_num_den
+from .quotient_sweep import aggregate_lookup_columns, chunk_columns, chunk_num_den
 
 
 def z_and_partials(num_all, den_inv_all):
@@ -46,3 +49,36 @@ def stage2_columns(copy_vals, sigma_vals, non_residues, xs, beta, gamma,
         copy_vals, sigma_vals, non_residues, xs, beta, gamma, chunks
     )
     return z_and_partials(num_all, ext_f.batch_inverse(den_all))
+
+
+def _lookup_denominators(lookup_cols, table_id_col, table_cols, beta, gamma,
+                         num_repetitions, width):
+    """(R + 1, n) stacked ext pair: the R sub-argument denominators, then
+    the table's."""
+    gpow = ext_f.powers_s(gamma, width + 1)
+    dens = [
+        aggregate_lookup_columns(
+            [lookup_cols[i * width + j] for j in range(width)], table_id_col, gpow, beta
+        )
+        for i in range(num_repetitions)
+    ]
+    dens.append(aggregate_lookup_columns(
+        [table_cols[j] for j in range(width)], table_cols[width], gpow, beta
+    ))
+    return torch.stack([d[0] for d in dens]), torch.stack([d[1] for d in dens])
+
+
+def compute_lookup_polys(lookup_cols, table_id_col, table_cols, multiplicities,
+                         lookup_beta, lookup_gamma, num_repetitions, width):
+    """A_i and B over H, each an ext pair:
+      A_i(x) = 1 / (Σ_j γ^j·w_{i,j}(x) + γ^w·table_id(x) + β)
+      B(x)   = M(x) / (Σ_j γ^j·t_j(x) + γ^w·t_id(x) + β)
+    lookup_cols (R·w, n); table_id_col, multiplicities (n,); table_cols
+    (w + 1, n), the id column last."""
+    R = int(num_repetitions)
+    inv = ext_f.batch_inverse(_lookup_denominators(
+        lookup_cols, table_id_col, table_cols, lookup_beta, lookup_gamma, R, int(width)
+    ))
+    a_polys = [(inv[0][i], inv[1][i]) for i in range(R)]
+    b_poly = (gf.mul(inv[0][R], multiplicities), gf.mul(inv[1][R], multiplicities))
+    return a_polys, b_poly

@@ -1,7 +1,9 @@
 """Plain host verifier (python ints), the JAX package's prover/verifier.py
-without lookups: transcript replay, the quotient identity at z through the
-same gate evaluators (over GF(p^2) scalars), the copy-permutation relations
-at z, then per query the Merkle paths, the DEEP value and the FRI chain.
+with specialized-column lookups: transcript replay, the quotient identity at
+z through the same gate evaluators (over GF(p^2) scalars), the
+copy-permutation and lookup relations at z, the lookup sum check
+Σ_i A_i(0) = B(0), then per query the Merkle paths, the DEEP value and the
+FRI chain.
 """
 
 from __future__ import annotations
@@ -51,20 +53,29 @@ def verify(vk, proof, gates) -> bool:
     L = vk.fri_lde_factor
     Q = vk.quotient_degree
     log_full = log_n + (L.bit_length() - 1)
-    Ct = vk.num_copy_cols
-    K = geometry.num_constant_columns
-    if vk.num_wit_cols or Ct != geometry.num_columns_under_copy_permutation:
+    Ct = vk.num_copy_cols  # every column under the copy permutation
+    Cg = geometry.num_columns_under_copy_permutation
+    lp = vk.lookup_params
+    lookups = lp is not None and lp.is_enabled
+    if lookups and not lp.use_specialized_columns:
+        return False  # general-mode lookups are not ported
+    M = 1 if lookups else 0
+    wdt = lp.width if lookups else 0
+    R = lp.num_repetitions if lookups else 0
+    K = geometry.num_constant_columns + M  # the table-id column last
+    TW = wdt + 1 if lookups else 0
+    if vk.num_wit_cols or Ct != Cg + R * wdt:
         return False
     if [g.name for g in gates] != list(vk.gate_names):
         return False
     if len(proof.public_inputs) != len(vk.public_input_locations):
         return False
     chunks = chunk_columns(Ct, geometry.max_allowed_constraint_degree)
-    S = 2 * len(chunks)  # z and the partial products
-    B = Ct + (Ct + K) + S + 2 * Q
+    S = 2 * len(chunks) + 2 * (R + M)  # z, partials, A_i, B
+    B = (Ct + M) + (Ct + K + TW) + S + 2 * Q
     if len(proof.values_at_z) != B or len(proof.values_at_z_omega) != 2:
         return False
-    if proof.values_at_0:
+    if len(proof.values_at_0) != R + M:
         return False
 
     # ---- transcript replay ------------------------------------------------
@@ -74,11 +85,14 @@ def verify(vk, proof, gates) -> bool:
     t.witness_merkle_tree_cap(proof.witness_cap)
     beta = t.get_ext_challenge()
     gamma = t.get_ext_challenge()
+    if lookups:
+        lookup_beta = t.get_ext_challenge()
+        lookup_gamma = t.get_ext_challenge()
     t.witness_merkle_tree_cap(proof.stage2_cap)
     alpha = t.get_ext_challenge()
     t.witness_merkle_tree_cap(proof.quotient_cap)
     z = t.get_ext_challenge()
-    for v in list(proof.values_at_z) + list(proof.values_at_z_omega):
+    for v in [*proof.values_at_z, *proof.values_at_z_omega, *proof.values_at_0]:
         t.witness_field_elements(v)
     deep_ch = t.get_ext_challenge()
     try:
@@ -99,11 +113,13 @@ def verify(vk, proof, gates) -> bool:
 
     # ---- quotient identity at z ------------------------------------------
     vals = [tuple(v) for v in proof.values_at_z]
-    wit_vals = vals[:Ct]
-    sigma_vals = vals[Ct : 2 * Ct]
-    const_vals = vals[2 * Ct : 2 * Ct + K]
-    s2_vals = vals[2 * Ct + K : 2 * Ct + K + S]
-    q_vals = vals[2 * Ct + K + S :]
+    Cw = Ct + M  # witness oracle columns
+    wit_vals = vals[:Cw]
+    sigma_vals = vals[Cw : Cw + Ct]
+    const_vals = vals[Cw + Ct : Cw + Ct + K]
+    table_vals = vals[Cw + Ct + K : Cw + Ct + K + TW]
+    s2_vals = vals[Cw + Ct + K + TW : Cw + Ct + K + TW + S]
+    q_vals = vals[Cw + Ct + K + TW + S :]
     alpha_pows = _powers_iter(alpha)
     total = ext_f.ZERO_S
     for gid, gate in enumerate(gates):
@@ -153,6 +169,29 @@ def verify(vk, proof, gates) -> bool:
             )
         rel = ext_f.sub_s(ext_f.mul_s(lhs_seq[j], den_p), ext_f.mul_s(rhs_seq[j], num_p))
         total = ext_f.add_s(total, ext_f.mul_s(rel, next(alpha_pows)))
+    ab = 2 * len(chunks)  # first A_i row of stage 2
+    if lookups:
+        # A_i·den_i - 1 and B·den_t - M at z, then Σ_i A_i(0) = B(0)
+        gpow = ext_f.powers_s(lookup_gamma, wdt + 1)
+        tid_at_z = const_vals[K - 1]
+        for i in range(R):
+            a_i = ext_from_pair(s2_vals[ab + 2 * i], s2_vals[ab + 2 * i + 1])
+            den = ext_f.add_s(lookup_beta, ext_f.mul_s(gpow[wdt], tid_at_z))
+            for j in range(wdt):
+                den = ext_f.add_s(den, ext_f.mul_s(gpow[j], wit_vals[Cg + i * wdt + j]))
+            rel = ext_f.sub_s(ext_f.mul_s(a_i, den), ext_f.ONE_S)
+            total = ext_f.add_s(total, ext_f.mul_s(rel, next(alpha_pows)))
+        b_at_z = ext_from_pair(s2_vals[ab + 2 * R], s2_vals[ab + 2 * R + 1])
+        den = lookup_beta
+        for j in range(wdt + 1):
+            den = ext_f.add_s(den, ext_f.mul_s(gpow[j], table_vals[j]))
+        rel = ext_f.sub_s(ext_f.mul_s(b_at_z, den), wit_vals[Ct])
+        total = ext_f.add_s(total, ext_f.mul_s(rel, next(alpha_pows)))
+        a_sum = ext_f.ZERO_S
+        for i in range(R):
+            a_sum = ext_f.add_s(a_sum, tuple(proof.values_at_0[i]))
+        if a_sum != tuple(proof.values_at_0[R]):
+            return False
     t_at_z = ext_f.ZERO_S
     for i in range(Q):
         q_i = ext_from_pair(q_vals[2 * i], q_vals[2 * i + 1])
@@ -171,10 +210,10 @@ def verify(vk, proof, gates) -> bool:
     for q in proof.queries:
         idx = bs.get_index(t, log_full)
         for oq, cap, width in (
-            (q.witness, proof.witness_cap, Ct),
+            (q.witness, proof.witness_cap, Cw),
             (q.stage2, proof.stage2_cap, S),
             (q.quotient, proof.quotient_cap, 2 * Q),
-            (q.setup, vk.setup_merkle_cap, Ct + K),
+            (q.setup, vk.setup_merkle_cap, Ct + K + TW),
         ):
             if len(oq.leaf_values) != width:
                 return False
@@ -197,6 +236,12 @@ def verify(vk, proof, gates) -> bool:
         for i in range(2):
             diff = ext_f.sub_s((q.stage2.leaf_values[i], 0), tuple(proof.values_at_z_omega[i]))
             h = ext_f.add_s(h, ext_f.mul_s(ext_f.mul_s(diff, inv_xzw), next(ch_iter)))
+        if lookups:
+            inv_x = gl.inv(x)
+            for i in range(R + 1):
+                f_pair = (q.stage2.leaf_values[ab + 2 * i], q.stage2.leaf_values[ab + 2 * i + 1])
+                diff = ext_f.sub_s(f_pair, tuple(proof.values_at_0[i]))
+                h = ext_f.add_s(h, ext_f.mul_s(ext_f.mul_by_base_s(diff, inv_x), next(ch_iter)))
         for k, (col, row) in enumerate(vk.public_input_locations):
             ch = next(ch_iter)
             diff = gl.sub(q.witness.leaf_values[col], proof.public_inputs[k])

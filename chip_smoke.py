@@ -9,35 +9,49 @@ Phases, each printing its seconds:
   2. the build of every CUDA kernel (one nvcc per source, all at once);
   3. every kernel against its plain PyTorch version on the card, word for
      word (tolerance 0: every result is an exact field element), at the
-     shapes the slice's prove gives it, with its time, the plain version's
-     time and its bound;
-  4. the fma circuit at 2^10 proved on the card and on the CPU: the two
-     proofs must be the same JSON text, and the port's verifier must accept;
-  5. the slice: the bench fma-chain circuit (16 copy columns, 6 constant
-     columns, degree 3; LDE 4, cap 16, 50 queries, no PoW, final degree 16)
+     shapes the fma 2^20 prove gives it and again at the shapes the sha256
+     2^16 prove gives it (LDE and quotient cosets at 8, the quotient sweep
+     with its lookup terms), each with its time, the plain version's time
+     and its bound;
+  4. small circuits set up and proved on the card and on the CPU: fma at
+     2^10, the xor4 lookup circuit at 2^9 and sha256(b"abc") at 2^14. The
+     two setup caps of each must be equal, the two proofs the same JSON
+     text, and the port's verifier must accept;
+  5. the bench fma-chain circuit (16 copy columns, 6 constant columns,
+     degree 3; LDE 4, cap 16, 50 queries, no PoW, final degree 16)
      synthesized, set up, proved and verified at 2^20 rows. The launch
      counts go to 0 before synthesis and are read after verification; every
      kernel must have launched on the prove;
   6. where the time of that prove goes: a warm prove (per-round seconds),
      then one under torch.profiler. Device time is grouped into the port's
      CUDA kernels (by kernel), the plain PyTorch work around them (by op)
-     and copies; the idle share is 1 - device busy / wall. One JSON line.
+     and copies; the idle share is 1 - device busy / wall. One JSON line;
+  7. the slice: bench.py's headline, sha256 over 8 KiB (60 copy columns,
+     8 constant columns, degree 7, width-4 x8 specialized lookups; LDE 8,
+     cap 16, 50 queries, no PoW, final degree 16) at 2^16 rows, as phase 5
+     with its own launch counts, and the circuit's digest against hashlib;
+  8. the same profile as phase 6 for the sha256 prove, on its own line.
 
-Prints the profile line, the kernel table as one JSON line, the card line,
-and as the last line
+Prints the two profile lines, the kernel table as one JSON line, the card
+line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, if any phase
 fails, if no CUDA device is available, or if the package is missing.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-LOG_N = 20  # the slice: the Era main-VM trace length
+LOG_N = 20  # the fma chain: the Era main-VM trace length
+SHA_BYTES = 8192  # bench.py's sha256 message; pads to 2^16 rows
+FMA_PATH = f"fma 2^{LOG_N}"
+SHA_LOG_N = 16
+SHA_PATH = f"sha256 {SHA_BYTES} B, 2^{SHA_LOG_N}"
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published
 # 32-bit integer multiply-add and add issue per SM per clock on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -131,111 +145,192 @@ def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def kernel_parity(torch, log_n: int, asm_small, int_ops_per_s: float) -> dict:
-    """Every kernel against its plain version at the slice's shapes."""
+def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
+    """Every kernel against its plain version at the shapes each prove path
+    gives it. `paths` holds (path, an assembly of the path's circuit at a
+    small size, log2 of the path's rows, its proof config)."""
     from boojum_tpu_torch import kernels as K
     from boojum_tpu_torch.field import goldilocks as gf
     from boojum_tpu_torch.hashes import poseidon2 as p2
     from boojum_tpu_torch.ntt import ntt
     from boojum_tpu_torch.prover import fri, quotient_sweep as qs
-    from boojum_tpu_torch.prover.setup import build_selector_tree
+    from boojum_tpu_torch.prover.setup import build_selector_tree, quotient_degree_for
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
+    w = 8  # bytes per word
 
     def rand(*shape):
         x = torch.randint(-(2**63), 2**63 - 1, shape, generator=gen,
                           dtype=torch.int64, device=dev)
         return torch.where((x ^ -(2**63)) >= (gf.P ^ 2**63), x - gf.P_I64, x)
 
-    n = 1 << log_n
-    L, Ct, Cs, S, Q = 4, 16, 22, 12, 4
-    N = n * L
-    w = 8
-    _tree, paths = build_selector_tree(asm_small.gates)
-    plan = qs.SweepPlan(asm_small.gates, paths, asm_small.geometry, Ct, dev)
-    table = qs.sweep_table(plan, (3, 5), (7, 11), (13, 17),
-                           [int(v) for v in range(1, Ct + 1)], dev)
-    mono_s = rand(Cs, n)
-    scale_row = ntt.lde_scale_rows(log_n, Q, dev)[1]
-    mono_w = rand(Ct, n)
-    leaves = rand(Ct, N)
-    layer = rand(N, 4)
-    sweep_in = (rand(Ct, n), rand(Cs, n), rand(S, n), rand(2, n), rand(n),
-                rand(n), rand(n))
-    c0, c1, inv_x = rand(N), rand(N), rand(N // 2)
-    cases = {
-        # name: (kernel call, plain call, bytes moved, shape)
-        "ntt_forward": (
-            lambda: ntt.fft_natural_to_bitreversed(mono_s, scale_row),
-            lambda: ntt.fft_plain(mono_s, scale_row),
-            w * (2 * Cs * n + n + n // 2), f"({Cs}, 2^{log_n}) x coset row",
-        ),
-        "ntt_inverse": (
-            lambda: ntt.ifft_bitreversed_to_natural(mono_w),
-            lambda: ntt.ifft_plain(mono_w),
-            w * (2 * Ct * n + n // 2), f"({Ct}, 2^{log_n})",
-        ),
-        "ntt_lde": (
-            lambda: ntt.lde_from_monomial(mono_w, L),
-            lambda: ntt.lde_plain(mono_w, ntt.lde_scale_rows(log_n, L, dev)),
-            w * (Ct * n + L * n + n // 2 + Ct * L * n), f"({Ct}, 2^{log_n}) -> x{L}",
-        ),
-        "poseidon2_leaf": (
-            lambda: p2.leaf_hash(leaves),
-            lambda: p2.leaf_hash_plain(leaves),
-            w * (Ct * N + 4 * N), f"({Ct}, 2^{log_n + 2}) leaves",
-        ),
-        "poseidon2_node": (
-            lambda: p2.node_hash(layer),
-            lambda: p2.node_hash_plain(layer),
-            w * (4 * N + 2 * N), f"(2^{log_n + 2}, 4) -> (2^{log_n + 1}, 4)",
-        ),
-        "quotient_sweep": (
-            lambda: torch.stack(qs.coset_terms(plan, *sweep_in, table)),
-            lambda: torch.stack(qs.coset_terms_plain(plan, *sweep_in, table)),
-            w * ((Ct + Cs + S + 2 + 3) * n + table.numel() + 2 * n),
-            f"one coset of 2^{log_n} rows",
-        ),
-        "fri_fold": (
-            lambda: torch.stack(fri.fold_once(c0, c1, (3, 5), inv_x)),
-            lambda: torch.stack(fri.fold_once_plain(c0, c1, (3, 5), inv_x)),
-            w * (2 * N + N // 2 + N), f"2^{log_n + 2} -> 2^{log_n + 1}",
-        ),
-    }
-    rows = {}
-    for name, (kern, plain, nbytes, shape) in cases.items():
-        t0 = time.perf_counter()
-        got = kern()
-        with FieldOpCounter(gf) as ops:
-            want = plain()
-        torch.cuda.synchronize()
-        err = max_abs_err(gf, got, want)
-        ms = timed(torch, kern, 5)
-        plain_ms = timed(torch, plain, 1)
-        bound_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-        bound_ops = ops.int_ops / int_ops_per_s * 1e3
-        lib, replaces = K.KERNELS[name]
-        rows[name] = {
-            "name": name,
-            "route": "cuda",
-            "source": f"boojum_tpu_torch/csrc/{lib}.cu",
-            "replaces": replaces,
-            "shape": shape,
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": None,
-        }
-        log(f"  {name:15s} {shape:32s} err={err} kernel {ms:.3f} ms  plain "
-            f"{plain_ms:.1f} ms  bound {rows[name]['bound_ms']:.3f} ms "
-            f"({rows[name]['bound_by']})  [{time.perf_counter() - t0:.1f} s]")
-        if err:
-            raise AssertionError(f"kernel {name} disagrees with its plain version")
+    def path_cases(asm, log_n, L):
+        """(name, kernel call, plain call, bytes moved, shape) of each kernel
+        on random inputs of the shapes the prove of `asm`'s circuit at 2^log_n
+        rows gives it: the widest call of each kernel on the prove (the
+        witness oracle's commit for the inverse NTT, LDE and leaf hash; the
+        setup oracle's coset evaluation for the forward NTT; the first FRI
+        fold)."""
+        n = 1 << log_n
+        N = n * L
+        tree, sel_paths = build_selector_tree(asm.gates)
+        Q = quotient_degree_for(asm, tree)
+        lp = asm.lookup_params if asm.lookups_enabled else None
+        Ct = asm.num_copy_cols_total
+        plan = qs.SweepPlan(asm.gates, sel_paths, asm.geometry, Ct, dev, lp)
+        Cw, Cs, C2 = plan.num_wit_rows, plan.num_setup_cols, plan.num_s2_rows
+        table = qs.sweep_table(plan, (3, 5), (7, 11), (13, 17),
+                               [int(v) for v in range(1, Ct + 1)], dev,
+                               (19, 23), (29, 31))
+        wit, setup_m = rand(Cw, n), rand(Cs, n)
+        sweep_args = (wit, setup_m, rand(C2, n), rand(2, n), rand(n), rand(n), rand(n))
+        scale_row = ntt.lde_scale_rows(log_n, Q, dev)[1]
+        leaves, layer = rand(Cw, N), rand(N, 4)
+        c0, c1, inv_x = rand(N), rand(N), rand(N // 2)
+        sweep_rows = Cw + Cs + C2 + 2 + 3
+        return [
+            ("ntt_forward",
+             lambda: ntt.fft_natural_to_bitreversed(setup_m, scale_row),
+             lambda: ntt.fft_plain(setup_m, scale_row),
+             w * (2 * Cs * n + n + n // 2), f"({Cs}, 2^{log_n}) x coset row of {Q}"),
+            ("ntt_inverse",
+             lambda: ntt.ifft_bitreversed_to_natural(wit),
+             lambda: ntt.ifft_plain(wit),
+             w * (2 * Cw * n + n // 2), f"({Cw}, 2^{log_n})"),
+            ("ntt_lde",
+             lambda: ntt.lde_from_monomial(wit, L),
+             lambda: ntt.lde_plain(wit, ntt.lde_scale_rows(log_n, L, dev)),
+             w * (Cw * n + L * n + n // 2 + Cw * L * n), f"({Cw}, 2^{log_n}) -> x{L}"),
+            ("poseidon2_leaf",
+             lambda: p2.leaf_hash(leaves),
+             lambda: p2.leaf_hash_plain(leaves),
+             w * (Cw * N + 4 * N), f"({Cw}, 2^{log_n + L.bit_length() - 1}) leaves"),
+            ("poseidon2_node",
+             lambda: p2.node_hash(layer),
+             lambda: p2.node_hash_plain(layer),
+             w * (4 * N + 2 * N), f"({N}, 4) -> ({N // 2}, 4)"),
+            ("quotient_sweep",
+             lambda: torch.stack(qs.coset_terms(plan, *sweep_args, table)),
+             lambda: torch.stack(qs.coset_terms_plain(plan, *sweep_args, table)),
+             w * (sweep_rows * n + table.numel() + 2 * n),
+             f"one coset of 2^{log_n} rows: {Cw} witness, {Cs} setup, {C2} stage-2 rows"),
+            ("fri_fold",
+             lambda: torch.stack(fri.fold_once(c0, c1, (3, 5), inv_x)),
+             lambda: torch.stack(fri.fold_once_plain(c0, c1, (3, 5), inv_x)),
+             w * (2 * N + N // 2 + N), f"{N} -> {N // 2}"),
+        ]
+
+    rows = []
+    for path, asm, log_n, cfg in paths:
+        for name, kern, plain, nbytes, shape in path_cases(asm, log_n, cfg.fri_lde_factor):
+            t0 = time.perf_counter()
+            got = kern()
+            with FieldOpCounter(gf) as ops:
+                want = plain()
+            torch.cuda.synchronize()
+            err = max_abs_err(gf, got, want)
+            del got, want
+            ms = timed(torch, kern, 5)
+            plain_ms = timed(torch, plain, 1)
+            bound_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+            bound_ops = ops.int_ops / int_ops_per_s * 1e3
+            lib, replaces = K.KERNELS[name]
+            row = {
+                "name": name,
+                "route": "cuda",
+                "source": f"boojum_tpu_torch/csrc/{lib}.cu",
+                "replaces": replaces,
+                "path": path,
+                "shape": shape,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(bound_bytes, bound_ops),
+                "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+                "library_ms": None,
+            }
+            rows.append(row)
+            log(f"  {name:15s} {shape:40s} err={err} kernel {ms:.3f} ms  plain "
+                f"{plain_ms:.1f} ms  bound {row['bound_ms']:.3f} ms "
+                f"({row['bound_by']})  [{time.perf_counter() - t0:.1f} s]")
+            if err:
+                raise AssertionError(f"kernel {name} ({path}) disagrees with its plain version")
     return rows
+
+
+def card_against_cpu(torch, label, asm, cfg) -> float:
+    """Set up and prove `asm` on the card and on the CPU: the same setup cap
+    and the same proof JSON text, accepted by the verifier."""
+    from boojum_tpu_torch.prover import generate_setup, prove, verify
+
+    t = time.perf_counter()
+    s_gpu = generate_setup(asm, cfg, device="cuda")
+    p_gpu = prove(asm, s_gpu, cfg, device="cuda")
+    s_cpu = generate_setup(asm, cfg, device="cpu")
+    if s_gpu.vk.setup_merkle_cap != s_cpu.vk.setup_merkle_cap:
+        raise AssertionError(f"{label}: setup caps differ between the card and the CPU")
+    p_cpu = prove(asm, s_cpu, cfg, device="cpu")
+    if p_gpu.to_json() != p_cpu.to_json():
+        raise AssertionError(f"{label}: proofs differ between the card and the CPU")
+    if not verify(s_gpu.vk, p_gpu, asm.gates):
+        raise AssertionError(f"{label}: proof rejected")
+    secs = time.perf_counter() - t
+    log(f"[4] {label}: card and CPU setups and proofs identical ({len(p_gpu.to_json())} "
+        f"bytes), verified ({secs:.1f} s)")
+    return secs
+
+
+def drive_path(torch, label, synthesize, cfg, log_n, phase) -> dict:
+    """One path through the entry points a user calls, with the launch
+    counts set to 0 just before synthesis and read after verification.
+    synthesize() returns (assembly, a check of the circuit's output); the
+    assembly must have 2^log_n rows, the size phase 3 checked the kernels
+    at."""
+    from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch.prover import generate_setup, prove, verify
+
+    K.reset_launches()
+    t = time.perf_counter()
+    asm, check_output = synthesize()
+    synth_s = time.perf_counter() - t
+    log(f"[{phase}] {label}: synthesis {synth_s:.1f} s, {asm.trace_len} rows")
+    if asm.trace_len != 1 << log_n:
+        raise AssertionError(f"{label}: {asm.trace_len} rows, not 2^{log_n}")
+    t = time.perf_counter()
+    setup = generate_setup(asm, cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    at_setup = dict(K.LAUNCHES)
+    log(f"[{phase}] setup {setup_s:.1f} s; launches {at_setup}")
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t = time.perf_counter()
+    proof = prove(asm, setup, cfg, device="cuda", timings=timings)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    on_prove = {k: v - at_setup[k] for k, v in K.LAUNCHES.items()}
+    log(f"[{phase}] prove {prove_s:.2f} s, peak device memory {peak:.2f} GiB; rounds "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+        + f"; launches {on_prove}")
+    t = time.perf_counter()
+    if not verify(setup.vk, proof, asm.gates):
+        raise AssertionError(f"{label}: proof rejected by the verifier")
+    if len(proof.queries) != cfg.num_queries or not proof.fri_caps:
+        raise AssertionError(f"{label}: proof has the wrong shape")
+    check_output()
+    verify_s = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    log(f"[{phase}] verified, output checked ({verify_s:.1f} s); launches on the "
+        f"path {launches}")
+    missing = [k for k in K.KERNELS if launches[k] == 0 or on_prove[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the prove: {missing}")
+    return dict(asm=asm, setup=setup, launches=launches, launches_on_prove=on_prove,
+                synthesis_s=synth_s, setup_s=setup_s, prove_cold_s=prove_s,
+                rounds_cold_s=timings, verify_s=verify_s, peak_device_memory_gib=peak)
 
 
 def _device_us(evt) -> float:
@@ -297,8 +392,12 @@ def main() -> int:
         print(f"chip_smoke: boojum_tpu_torch not importable: {e}", file=sys.stderr)
         return 2
     from boojum_tpu_torch import kernels as K
-    from boojum_tpu_torch.circuits import build_fma, fma_proof_config
-    from boojum_tpu_torch.prover import generate_setup, prove, verify
+    from boojum_tpu_torch.circuits import (
+        bench_message, build_fma, build_sha256, build_xor_lookup, fma_proof_config,
+        sha256_proof_config, xor_lookup_proof_config,
+    )
+    from boojum_tpu_torch.gadgets import sha256_digest_bytes
+    from boojum_tpu_torch.prover import prove
 
     t0 = time.perf_counter()
     card = nvidia_smi("name,power.limit")
@@ -316,70 +415,76 @@ def main() -> int:
 
     t = time.perf_counter()
     asm10 = build_fma(10).into_assembly()
-    log(f"[3] kernels against their plain versions at the 2^{LOG_N} slice's shapes")
-    rows = kernel_parity(torch, LOG_N, asm10, int_ops_per_s)
-    log(f"[3] all {len(rows)} kernels word-exact ({time.perf_counter() - t:.1f} s)")
+    cs_abc, digest_abc = build_sha256(message=b"abc")
+    asm_abc = cs_abc.into_assembly()
+    log(f"[3] kernels against their plain versions at the {FMA_PATH} and "
+        f"{SHA_PATH} proves' shapes")
+    rows = kernel_parity(torch, [
+        (FMA_PATH, asm10, LOG_N, fma_proof_config()),
+        (SHA_PATH, asm_abc, SHA_LOG_N, sha256_proof_config()),
+    ], int_ops_per_s)
+    log(f"[3] all {len(rows)} rows word-exact ({time.perf_counter() - t:.1f} s)")
 
-    t = time.perf_counter()
-    cfg = fma_proof_config()
-    s_gpu = generate_setup(asm10, cfg, device="cuda")
-    p_gpu = prove(asm10, s_gpu, cfg, device="cuda")
-    s_cpu = generate_setup(asm10, cfg, device="cpu")
-    p_cpu = prove(asm10, s_cpu, cfg, device="cpu")
-    if p_gpu.to_json() != p_cpu.to_json():
-        raise AssertionError("2^10 proofs differ between the card and the CPU")
-    if not verify(s_gpu.vk, p_gpu, asm10.gates):
-        raise AssertionError("2^10 proof rejected")
-    log(f"[4] fma 2^10: card and CPU proofs identical "
-        f"({len(p_gpu.to_json())} bytes), verified ({time.perf_counter() - t:.1f} s)")
+    small = {
+        "fma 2^10": card_against_cpu(torch, "fma 2^10", asm10, fma_proof_config()),
+        "xor4 lookup 2^9": card_against_cpu(
+            torch, "xor4 lookup 2^9", build_xor_lookup()[0].into_assembly(),
+            xor_lookup_proof_config()),
+        "sha256 abc 2^14": card_against_cpu(
+            torch, "sha256 abc 2^14", asm_abc, sha256_proof_config()),
+    }
+    if sha256_digest_bytes(cs_abc, digest_abc) != hashlib.sha256(b"abc").digest():
+        raise AssertionError("sha256(b'abc') circuit digest is wrong")
 
-    # the main path: every count goes to 0 here and is read after verify
-    K.reset_launches()
-    t = time.perf_counter()
-    asm = build_fma(LOG_N).into_assembly()
-    log(f"[5] fma 2^{LOG_N}: synthesis {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    setup = generate_setup(asm, cfg, device="cuda")
-    torch.cuda.synchronize()
-    at_setup = dict(K.LAUNCHES)
-    log(f"[5] setup {time.perf_counter() - t:.1f} s; launches {at_setup}")
-    torch.cuda.reset_peak_memory_stats()
-    timings = {}
-    t = time.perf_counter()
-    proof = prove(asm, setup, cfg, device="cuda", timings=timings)
-    torch.cuda.synchronize()
-    prove_s = time.perf_counter() - t
-    on_prove = {k: v - at_setup[k] for k, v in K.LAUNCHES.items()}
-    log(f"[5] prove {prove_s:.2f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; rounds "
-        + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
-        + f"; launches {on_prove}")
-    t = time.perf_counter()
-    if not verify(setup.vk, proof, asm.gates):
-        raise AssertionError(f"2^{LOG_N} proof rejected by the verifier")
-    if len(proof.queries) != cfg.num_queries or not proof.fri_caps:
-        raise AssertionError("proof has the wrong shape")
-    launches = dict(K.LAUNCHES)
-    log(f"[5] verified ({time.perf_counter() - t:.1f} s); launches on the main "
-        f"path {launches}")
-    missing = [k for k in rows if launches[k] == 0 or on_prove[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the prove: {missing}")
-    for name, row in rows.items():
-        row["launches"] = launches[name]
+    # each main path: every count goes to 0 before it and is read after verify
+    def fma_circuit():
+        return build_fma(LOG_N).into_assembly(), lambda: None
 
+    fma = drive_path(torch, FMA_PATH, fma_circuit, fma_proof_config(), LOG_N, 5)
     t = time.perf_counter()
-    prof = profile_prove(torch, prove, asm, setup, cfg)
-    prof.update(card=card, prove_cold_s=prove_s, rounds_cold_s=timings,
-                peak_device_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"[6] warm prove {prof['prove_warm_s']:.3f} s, device busy "
-        f"{prof['device_busy_ms']:.1f} ms, idle share "
-        f"{prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
-    print(json.dumps({"profile": prof}))
+    prof_fma = profile_prove(torch, prove, fma["asm"], fma["setup"], fma_proof_config())
+    prof_fma.update(circuit=FMA_PATH, card=card, **{
+        k: fma[k] for k in ("prove_cold_s", "rounds_cold_s", "peak_device_memory_gib")})
+    log(f"[6] warm prove {prof_fma['prove_warm_s']:.3f} s, device busy "
+        f"{prof_fma['device_busy_ms']:.1f} ms, idle share "
+        f"{prof_fma['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
+    del fma["asm"], fma["setup"]
 
+    message = bench_message(SHA_BYTES)
+
+    def sha_circuit():
+        cs, digest = build_sha256(SHA_BYTES)
+
+        def check():
+            if sha256_digest_bytes(cs, digest) != hashlib.sha256(message).digest():
+                raise AssertionError("sha256 circuit digest differs from hashlib's")
+
+        return cs.into_assembly(), check
+
+    sha = drive_path(torch, SHA_PATH, sha_circuit, sha256_proof_config(), SHA_LOG_N, 7)
+    t = time.perf_counter()
+    prof_sha = profile_prove(torch, prove, sha["asm"], sha["setup"], sha256_proof_config())
+    prof_sha.update(circuit=SHA_PATH, card=card,
+                    card_against_cpu_s=small, **{
+                        k: sha[k] for k in ("synthesis_s", "setup_s", "prove_cold_s",
+                                            "rounds_cold_s", "verify_s",
+                                            "peak_device_memory_gib",
+                                            "launches_on_prove")})
+    log(f"[8] warm prove {prof_sha['prove_warm_s']:.3f} s, device busy "
+        f"{prof_sha['device_busy_ms']:.1f} ms, idle share "
+        f"{prof_sha['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
+    print(json.dumps({"profile": prof_fma}))
+    print(json.dumps({"profile": prof_sha}))
+
+    paths = {FMA_PATH: fma["launches"], SHA_PATH: sha["launches"]}
+    for row in rows:
+        row["launches"] = paths[row["path"]][row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "path", "shape",
+            "launches_by_path")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

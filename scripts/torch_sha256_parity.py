@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""The JAX prover against boojum_tpu_torch on sha256 over a short message,
+on the CPU, the port with the plain version of every kernel.
+
+    JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py [--message abc]
+
+Synthesizes bench.py's sha256 circuit (60 copy columns, 8 constant columns,
+degree 7, width-4 x8 specialized lookups) in both packages, sets it up and
+proves it with bench.py's proof config (LDE 8, cap 16, 50 queries, no PoW,
+final degree 16), then prints one JSON line: each side's seconds, whether
+the checkpoint streams and the proof JSON texts are equal, and whether each
+package's verifier accepts the other's proof. sha256(b"abc") pads to 2^14
+rows. Too slow for the tier-1 tests, so it is run by hand.
+"""
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import conftest  # noqa: E402,F401  (CPU platform, persistent compile cache)
+
+from boojum_tpu.cs.implementations import ConstraintSystem  # noqa: E402
+from boojum_tpu.cs.types import CSGeometry, LookupParameters  # noqa: E402
+from boojum_tpu.gadgets import allocate_u8_input, sha256  # noqa: E402
+from boojum_tpu.prover import ProofConfig  # noqa: E402
+from boojum_tpu.prover import generate_setup as jgenerate_setup  # noqa: E402
+from boojum_tpu.prover import prove as jprove  # noqa: E402
+from boojum_tpu.prover import verify as jverify  # noqa: E402
+from boojum_tpu.prover.proof import Proof as JProof  # noqa: E402
+from boojum_tpu.utils.report import CheckpointLog as JCheckpointLog  # noqa: E402
+from boojum_tpu.utils.report import install_checkpoint_log  # noqa: E402
+from boojum_tpu_torch.circuits import build_sha256, sha256_proof_config  # noqa: E402
+from boojum_tpu_torch.prover import generate_setup, prove, verify  # noqa: E402
+from boojum_tpu_torch.prover.proof import Proof  # noqa: E402
+from boojum_tpu_torch.utils.report import CheckpointLog  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--message", default="abc", help="the message, as text")
+    message = ap.parse_args().message.encode()
+    out = {"message_bytes": len(message)}
+
+    t = time.perf_counter()
+    cs, _digest = build_sha256(message=message)
+    asm = cs.into_assembly()
+    cfg = sha256_proof_config()
+    setup = generate_setup(asm, cfg, device="cpu")
+    log = CheckpointLog()
+    proof = prove(asm, setup, cfg, device="cpu", log=log)
+    out["rows"] = asm.trace_len
+    out["port_cpu_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    jcs = ConstraintSystem(CSGeometry(60, 0, 8, 7), 1 << 17,
+                           lookup_params=LookupParameters(width=4, num_repetitions=8))
+    sha256(jcs, allocate_u8_input(jcs, message))
+    jasm = jcs.into_assembly()
+    jcfg = ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=16, num_queries=50,
+                       pow_bits=0, fri_final_degree=16)
+    jsetup = jgenerate_setup(jasm, jcfg)
+    jlog = JCheckpointLog()
+    prev = install_checkpoint_log(jlog)
+    try:
+        jproof = jprove(jasm, jsetup, jcfg)
+    finally:
+        install_checkpoint_log(prev)
+    out["jax_cpu_s"] = time.perf_counter() - t
+
+    jstream = [(e["round"], e["label"], e["digest"]) for e in jlog.entries]
+    out["streams_equal"] = jstream == log.stream()
+    out["proof_json_equal"] = jproof.to_json() == proof.to_json()
+    out["proof_bytes"] = len(proof.to_json())
+    out["jax_verifier_accepts_port_proof"] = bool(
+        jverify(jsetup.vk, JProof.from_json(proof.to_json()), jasm.gates))
+    out["port_verifier_accepts_jax_proof"] = bool(
+        verify(setup.vk, Proof.from_json(jproof.to_json()), asm.gates))
+    print(json.dumps(out))
+    ok = all(out[k] for k in ("streams_equal", "proof_json_equal",
+                              "jax_verifier_accepts_port_proof",
+                              "port_verifier_accepts_jax_proof"))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

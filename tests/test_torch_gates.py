@@ -1,4 +1,4 @@
-"""The port's gates of the fma-chain slice against boojum_tpu's: the same
+"""The port's gates of the fma-chain and sha256 slices against boojum_tpu's: the same
 captured op program (the table the quotient-sweep kernel replays), the same
 terms over host ints, and the captured program replayed over word tensors
 equal to the gate's own evaluation (tolerance 0: exact field elements)."""
@@ -21,6 +21,7 @@ from torch_port_util import BOUNDARY, rand_words, to_np, to_t
 JAX_GATES = {
     "fma": jsimple.FmaGate, "constant": jsimple.ConstantsAllocatorGate,
     "nop": jsimple.NopGate, "public_input": jsimple.PublicInputGate,
+    "reduction4": jsimple.ReductionGate,
 }
 
 

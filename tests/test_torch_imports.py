@@ -37,6 +37,10 @@ def test_every_module_imports_without_jax_or_boojum_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert len(MODULES) >= 20
+    # the sha256 slice's modules are among those imported
+    assert {"boojum_tpu_torch.cs.lookup_table", "boojum_tpu_torch.gadgets.tables",
+            "boojum_tpu_torch.gadgets.chunk_utils", "boojum_tpu_torch.gadgets.sha256",
+            "boojum_tpu_torch.circuits"} <= set(MODULES)
 
 
 def test_sources_name_no_jax_import():

@@ -1,13 +1,15 @@
 """Each CUDA kernel of boojum_tpu_torch against its plain PyTorch version on
-the card, word for word (tolerance 0), and a 2^10 proof identical on the card
-and the CPU. Marked `cuda`: they skip where no card is present and run on the
+the card, word for word (tolerance 0), and the fma 2^10 and xor4 lookup 2^9
+proofs identical on the card and the CPU. Marked `cuda`: they skip where no card is present and run on the
 card with `python -m pytest tests/test_torch_kernels.py`."""
 
 import numpy as np
 import pytest
 import torch
 
-from boojum_tpu_torch.circuits import build_fma, fma_proof_config
+from boojum_tpu_torch.circuits import (
+    build_fma, build_sha256, build_xor_lookup, fma_proof_config, xor_lookup_proof_config,
+)
 from boojum_tpu_torch.field import goldilocks as gf
 from boojum_tpu_torch.hashes import poseidon2 as p2
 from boojum_tpu_torch.ntt import ntt
@@ -72,6 +74,27 @@ def test_sweep_and_fold_kernels_match_plain(dev):
         _same(g, w)
 
 
+@pytest.mark.parametrize("circuit", ["xor4", "sha256"])
+def test_lookup_sweep_kernel_matches_plain(dev, circuit):
+    """The sweep with its lookup terms, at the xor4 (width 3, 2 sub-arguments)
+    and sha256 (width 4, 8 sub-arguments, 92 copy columns) geometries."""
+    cs = build_xor_lookup()[0] if circuit == "xor4" else build_sha256(message=b"abc")[0]
+    asm = cs.into_assembly()
+    _tree, paths = build_selector_tree(asm.gates)
+    Ct = asm.num_copy_cols_total
+    plan = qs.SweepPlan(asm.gates, paths, asm.geometry, Ct, dev, asm.lookup_params)
+    rng = np.random.default_rng(2)
+    n = 1 << 11
+    args = [_rand(rng, r, n, device=dev)
+            for r in (plan.num_wit_rows, plan.num_setup_cols, plan.num_s2_rows, 2)]
+    args += [_rand(rng, n, device=dev) for _ in range(3)]
+    table = qs.sweep_table(plan, (3, 5), (7, 11), (13, 17), list(range(1, Ct + 1)), dev,
+                           (19, 23), (29, 31))
+    for g, w in zip(qs.coset_terms(plan, *args, table),
+                    qs.coset_terms_plain(plan, *args, table)):
+        _same(g, w)
+
+
 def test_sweep_rejects_a_short_setup_stack_on_the_card(dev):
     asm = build_fma(8).into_assembly()
     _tree, paths = build_selector_tree(asm.gates)
@@ -85,9 +108,12 @@ def test_sweep_rejects_a_short_setup_stack_on_the_card(dev):
         qs.coset_terms(plan, *args, table)
 
 
-def test_proof_identical_on_card_and_cpu(dev):
-    asm = build_fma(10).into_assembly()
-    cfg = fma_proof_config()
+@pytest.mark.parametrize("circuit", ["fma", "xor4"])
+def test_proof_identical_on_card_and_cpu(dev, circuit):
+    if circuit == "fma":
+        asm, cfg = build_fma(10).into_assembly(), fma_proof_config()
+    else:
+        asm, cfg = build_xor_lookup()[0].into_assembly(), xor_lookup_proof_config()
     s_gpu = generate_setup(asm, cfg, device=dev)
     p_gpu = prove(asm, s_gpu, cfg, device=dev)
     p_cpu = prove(asm, generate_setup(asm, cfg, device="cpu"), cfg, device="cpu")
