@@ -3,7 +3,9 @@ from .simple import (
     GATES_BY_NAME,
     ConstantsAllocatorGate,
     FmaGate,
+    LookupMarkerGate,
     NopGate,
     PublicInputGate,
     ReductionGate,
+    ZeroCheckWitnessGate,
 )

@@ -38,6 +38,7 @@ class Gate:
     num_constants: int = 0  # constant columns consumed per row
     num_terms: int = 0  # quotient terms per instance
     max_degree: int = 0  # max constraint degree over the trace polys
+    is_lookup_marker: bool = False  # rows carry general-mode lookup tuples
 
     _inst = None
 

@@ -1,7 +1,7 @@
-"""The gates of the fma-chain and sha256 circuits, with the constraints of
-the JAX package's cs/gates/simple.py (era-boojum's
-fma_gate_without_constant.rs, constant_allocator.rs, nop_gate.rs,
-public_input.rs, reduction_gate.rs).
+"""The gates of the port's circuits, with the constraints of the JAX
+package's cs/gates/simple.py (era-boojum's fma_gate_without_constant.rs,
+constant_allocator.rs, nop_gate.rs, public_input.rs, reduction_gate.rs,
+zero_check.rs with its witness-column inverse, lookup_marker.rs).
 
 Synthesis resolves every value eagerly as a host int: a constructor computes
 its outputs and places the instance.
@@ -127,7 +127,74 @@ class ReductionGate(Gate):
                       tuple(c % gl.P for c in coeffs4))
 
 
+class ZeroCheckWitnessGate(Gate):
+    """out = (x == 0): x·out = 0 and 1 - out - x·aux = 0, the inverse aux in
+    a witness column (era-boojum zero_check.rs with
+    use_witness_column_for_inversion): no copy constraint wires it."""
+
+    name = "zero_check_wit"
+    principal_width = 2
+    witness_width = 1
+    num_terms = 2
+    max_degree = 2
+
+    def evaluate(self, ops, row, dst):
+        x, out, aux = row.v(0), row.v(1), row.w(0)
+        dst.push(ops.mul(x, out))
+        dst.push(ops.sub(ops.sub(ops.one(), out), ops.mul(x, aux)))
+
+    def padding_instance(self, cs, constants=()):
+        # x = 0, out = 1; the vacant witness cell is 0
+        return [cs.zero_var(), cs.one_var()]
+
+    @staticmethod
+    def is_zero(cs, x):
+        """Allocate and constrain out = 1 if x == 0 else 0."""
+        out = cs.alloc_variable_without_value()
+        aux = cs.alloc_witness_without_value()
+        cs.set_values_with_dependencies(
+            [x], [out, aux], lambda v: [1, 0] if v[0] == 0 else [0, gl.inv(v[0])])
+        cs.place_gate(ZeroCheckWitnessGate.instance(), (x, out), (), wit_places=(aux,))
+        return out
+
+
+class LookupMarkerGate(Gate):
+    """Marks rows whose general copy columns hold lookup tuples (era-boojum
+    LookupFormalGate, lookup_marker.rs): `width` columns per tuple, the table
+    id as the row's one gate constant. Its selector gates the A relations of
+    the lookup argument; it has no quotient terms of its own."""
+
+    name = "lookup_marker"
+    num_constants = 1
+    is_lookup_marker = True
+    _by_width: dict = {}
+
+    def __init__(self, width: int):
+        self.principal_width = width
+
+    def evaluate(self, ops, row, dst):
+        pass
+
+    def padding_instance(self, cs, constants=()):
+        """A vacant instance takes fresh variables valued as the table's row
+        0 (zero-padded to the width), and counts that row once more."""
+        tid = int(constants[0])
+        table = cs.get_table(tid)
+        row0 = [int(v) for v in table.content[0]]
+        row0 += [0] * (self.principal_width - table.width)
+        cs.bump_multiplicity(tid, 0)
+        return [cs.alloc_variable_with_value(v) for v in row0]
+
+    @classmethod
+    def instance(cls, width: int = 0):
+        gate = cls._by_width.get(width)
+        if gate is None:
+            gate = cls._by_width[width] = cls(width)
+        return gate
+
+
 GATES_BY_NAME = {
     g.name: g
-    for g in (FmaGate, ConstantsAllocatorGate, NopGate, PublicInputGate, ReductionGate)
+    for g in (FmaGate, ConstantsAllocatorGate, NopGate, PublicInputGate, ReductionGate,
+              ZeroCheckWitnessGate, LookupMarkerGate)
 }

@@ -13,9 +13,16 @@ grouped by table, into R·width dedicated copy columns beside a table-id
 column; vacant slots take a padding tuple (the table's row 0) whose
 multiplicity is counted, so the log-derivative sums balance.
 
-Differences: every value is resolved eagerly as a host int when its
-variable is allocated, so there is no resolver; there are no witness
-columns and no general-mode lookups (the sha256 slice uses neither).
+In general mode (era-boojum lookup_placement.rs:21) a tuple instead takes
+one instance of the lookup-marker gate in the general copy columns, the
+table id being that row's gate constant; a vacant instance takes the
+table's row 0 and counts it.
+
+Witness columns (places 2k + 1) hold values no copy constraint wires,
+placed beside a gate's copy cells by `place_gate(..., wit_places=...)`.
+
+Difference: every value is resolved eagerly as a host int when its
+variable is allocated, so there is no resolver.
 """
 
 from __future__ import annotations
@@ -24,23 +31,22 @@ import numpy as np
 
 from ...field import gl
 from ..gates.base import Gate
-from ..gates.simple import ConstantsAllocatorGate, NopGate
+from ..gates.simple import ConstantsAllocatorGate, LookupMarkerGate, NopGate
 from ..types import CSGeometry, LookupParameters
 
 
 class ConstraintSystem:
     def __init__(self, geometry: CSGeometry, max_trace_len: int,
                  lookup_params: LookupParameters | None = None):
-        if geometry.num_witness_columns:
-            raise NotImplementedError("witness columns are not ported yet")
         self.lookup_params = lookup_params or LookupParameters()
-        if self.lookup_params.is_enabled and not self.lookup_params.use_specialized_columns:
-            raise NotImplementedError("general-mode lookups are not ported yet")
         self.geometry = geometry
         self.max_trace_len = max_trace_len
-        self.values: list[int] = []  # value of variable k
+        self.values: list[int] = []  # value of variable k (place 2k)
+        self.wit_values: list[int] = []  # value of witness k (place 2k + 1)
         c = geometry.num_columns_under_copy_permutation
         self.copy_placement = np.full((c, max_trace_len), -1, dtype=np.int64)
+        self.wit_placement = np.full((geometry.num_witness_columns, max_trace_len), -1,
+                                     dtype=np.int64)
         self.row_gate = np.full(max_trace_len, -1, dtype=np.int32)
         self.gates: list[Gate] = []
         self.gate_index: dict[str, int] = {}
@@ -70,14 +76,22 @@ class ConstraintSystem:
     def alloc_variable_without_value(self) -> int:
         return self.alloc_multiple_variables_without_values(1)[0]
 
+    def alloc_witness_without_value(self) -> int:
+        """A fresh witness-column place, valued later."""
+        self.wit_values.append(0)
+        return ((len(self.wit_values) - 1) << 1) | 1
+
+    def _store(self, place: int):
+        return self.wit_values if place & 1 else self.values
+
     def set_values_with_dependencies(self, ins, outs, fn):
         """Value `outs` as fn(values of `ins`), at once."""
-        vals = fn([self.values[p >> 1] for p in ins])
+        vals = fn([self.get_value(p) for p in ins])
         for p, v in zip(outs, vals):
-            self.values[p >> 1] = int(v) % gl.P
+            self._store(p)[p >> 1] = int(v) % gl.P
 
     def get_value(self, place: int) -> int:
-        return self.values[place >> 1]
+        return self._store(place)[place >> 1]
 
     def zero_var(self) -> int:
         return self.allocate_constant(0)
@@ -106,8 +120,10 @@ class ConstraintSystem:
             self.gate_index[gate.name] = gid
         return gid
 
-    def place_gate(self, gate: Gate, var_places, constants=()):
-        """Place one instance; returns (first_column, row) of the instance."""
+    def place_gate(self, gate: Gate, var_places, constants=(), wit_places=()):
+        """Place one instance; returns (first_column, row) of the instance.
+        A gate with witness columns takes its witness places in the
+        instance's slot of the witness columns."""
         gid = self._register_gate(gate)
         key = (gate.name, constants)
         tool = self._tooling.get(key)
@@ -128,13 +144,18 @@ class ConstraintSystem:
         cp = self.copy_placement
         for i, p in enumerate(var_places):
             cp[off + i, row] = p
+        if len(wit_places) != gate.witness_width:
+            raise ValueError(f"gate {gate.name} takes {gate.witness_width} witness places")
+        woff = used * gate.witness_width
+        for i, p in enumerate(wit_places):
+            self.wit_placement[woff + i, row] = p
         tool[1] = used + 1
         return off, row
 
     def set_public(self, column: int, row: int):
         self.public_inputs.append((column, row))
 
-    # -- lookups (specialized columns) ---------------------------------------
+    # -- lookups ---------------------------------------------------------------
 
     def add_lookup_table(self, table) -> int:
         """Register a table; returns its id (ids start at 1)."""
@@ -156,10 +177,16 @@ class ConstraintSystem:
     def get_table(self, table_id: int):
         return self.lookup_tables[table_id - 1]
 
+    def bump_multiplicity(self, table_id: int, row: int, times: int = 1):
+        """Count `times` more uses of row `row` of the table."""
+        key = (table_id, row)
+        self.lookup_multiplicities[key] = self.lookup_multiplicities.get(key, 0) + times
+
     def enforce_lookup(self, table_id: int, keys: list[int]):
         """Constrain the tuple of places `keys` to be a row of the table and
         count that row's use. Tuples narrower than the argument are padded
-        with the zero variable."""
+        with the zero variable. In general mode the tuple is placed at once
+        as a lookup-marker instance whose row constant is the table id."""
         params = self.lookup_params
         if not params.is_enabled:
             raise ValueError("lookups are not configured")
@@ -169,10 +196,12 @@ class ConstraintSystem:
         keys = list(keys)
         while len(keys) < params.width:
             keys.append(self.zero_var())
-        self.lookup_rows.append((table_id, keys))
-        row = table.row_index([self.values[p >> 1] for p in keys[: table.width]])
-        key = (table_id, row)
-        self.lookup_multiplicities[key] = self.lookup_multiplicities.get(key, 0) + 1
+        if params.use_specialized_columns:
+            self.lookup_rows.append((table_id, keys))
+        else:
+            self.place_gate(LookupMarkerGate.instance(params.width), keys, (table_id,))
+        self.bump_multiplicity(
+            table_id, table.row_index([self.get_value(p) for p in keys[: table.width]]))
 
     def perform_lookup(self, table_id: int, key_places: list[int]) -> list[int]:
         """Allocate the table's values for the key variables and enforce."""
@@ -250,13 +279,6 @@ class ConstraintSystem:
                 pad_tuples[tid] = tup
             return tup
 
-        def bump_padding(tid: int, times: int):
-            if times:
-                key = (tid, 0)
-                self.lookup_multiplicities[key] = (
-                    self.lookup_multiplicities.get(key, 0) + times
-                )
-
         by_table: dict[int, list[list[int]]] = {}
         for tid, places in self.lookup_rows:
             by_table.setdefault(tid, []).append(places)
@@ -268,7 +290,7 @@ class ConstraintSystem:
                 pad = R - len(chunk)
                 if pad:
                     chunk = chunk + [padding_tuple(tid)] * pad
-                    bump_padding(tid, pad)
+                    self.bump_multiplicity(tid, 0, pad)
                 table_id_col[row] = tid
                 for s, places in enumerate(chunk):
                     placement[s * w : (s + 1) * w, row] = places
@@ -278,25 +300,28 @@ class ConstraintSystem:
             table_id_col[row:] = 1
             for s in range(R):
                 placement[s * w : (s + 1) * w, row:] = tup[:, None]
-            bump_padding(1, (n - row) * R)
+            self.bump_multiplicity(1, 0, (n - row) * R)
         return placement, table_id_col
 
     def into_assembly(self) -> "CSAssembly":
         n = self.trace_len or self.pad_and_shrink()
         lookups_on = self.lookup_params.is_enabled and bool(self.lookup_tables)
-        if lookups_on:
+        if lookups_on and self.lookup_params.use_specialized_columns:
             lookup_placement, table_id_col = self._place_lookups(n)
         else:
+            # general mode: the tuples sit in the general copy columns and
+            # the table id is each marker row's gate constant
             lookup_placement = np.zeros((0, n), dtype=np.int64)
             table_id_col = None
-        values = np.array(self.values, dtype=np.uint64)
 
-        def scatter(placement):
+        def scatter(placement, store):
+            values = np.array(store or [0], dtype=np.uint64)
             cols = values[np.where(placement >= 0, placement >> 1, 0)]
             cols[placement < 0] = 0
             return cols
 
         placement = self.copy_placement[:, :n]
+        wit_placement = self.wit_placement[:, :n]
         multiplicities = table_stack = None
         if lookups_on:
             offsets = np.cumsum([0] + [len(t) for t in self.lookup_tables])
@@ -313,14 +338,16 @@ class ConstraintSystem:
             row_gate=self.row_gate[:n].copy(),
             gate_constants=dict(self.gate_constants),
             copy_placement=placement.copy(),
-            copy_cols_values=scatter(placement),
+            copy_cols_values=scatter(placement, self.values),
+            wit_placement=wit_placement.copy(),
+            wit_cols_values=scatter(wit_placement, self.wit_values),
             public_inputs=[
                 (c, r, self.get_value(int(self.copy_placement[c, r])))
                 for (c, r) in self.public_inputs
             ],
             lookup_params=self.lookup_params,
             lookup_placement=lookup_placement,
-            lookup_cols_values=scatter(lookup_placement),
+            lookup_cols_values=scatter(lookup_placement, self.values),
             lookup_table_id_col=table_id_col,
             multiplicities=multiplicities,
             table_stack=table_stack,
@@ -341,12 +368,13 @@ def stack_tables(tables, width: int, n: int) -> np.ndarray:
 
 
 class CSAssembly:
-    """Frozen, provable CS: placement, column values, gates, public inputs
-    and, with lookups, the specialized columns, multiplicities and the
-    stacked tables."""
+    """Frozen, provable CS: placement, column values, gates, public inputs,
+    the witness columns and, with lookups, the specialized columns (none in
+    general mode), multiplicities and the stacked tables."""
 
     def __init__(self, *, geometry, trace_len, gates, row_gate, gate_constants,
                  copy_placement, copy_cols_values, public_inputs,
+                 wit_placement=None, wit_cols_values=None,
                  lookup_params=None, lookup_placement=None, lookup_cols_values=None,
                  lookup_table_id_col=None, multiplicities=None, table_stack=None,
                  num_lookup_tables=0):
@@ -358,6 +386,12 @@ class CSAssembly:
         self.copy_placement = copy_placement
         self.copy_cols_values = copy_cols_values
         self.public_inputs = public_inputs
+        if wit_placement is None:
+            wit_placement = np.full((geometry.num_witness_columns, trace_len), -1,
+                                    dtype=np.int64)
+            wit_cols_values = np.zeros(wit_placement.shape, dtype=np.uint64)
+        self.wit_placement = wit_placement
+        self.wit_cols_values = wit_cols_values
         self.lookup_params = lookup_params or LookupParameters()
         if lookup_placement is None:
             lookup_placement = np.zeros((0, trace_len), dtype=np.int64)
@@ -384,11 +418,18 @@ class CSAssembly:
         return self.num_copy_cols + self.num_lookup_cols
 
     @property
+    def num_wit_cols(self) -> int:
+        return self.geometry.num_witness_columns
+
+    @property
     def lookup_mode(self) -> str:
-        """'none' or 'specialized' (general mode is not ported)."""
+        """'none', 'specialized' or 'general'; general mode with no lookup
+        placed has no marker gate and so no lookup argument."""
         if not self.lookup_params.is_enabled or not self.num_lookup_tables:
             return "none"
-        return "specialized"
+        if self.lookup_params.use_specialized_columns:
+            return "specialized"
+        return "general" if self.lookup_marker_gid() is not None else "none"
 
     @property
     def lookups_enabled(self) -> bool:
@@ -396,7 +437,18 @@ class CSAssembly:
 
     @property
     def num_lookup_subargs(self) -> int:
-        return self.lookup_params.num_repetitions if self.lookups_enabled else 0
+        """Sub-arguments: the configured repetitions in specialized mode,
+        general copy columns // width in general mode."""
+        mode = self.lookup_mode
+        if mode == "specialized":
+            return self.lookup_params.num_repetitions
+        if mode == "general":
+            return self.num_copy_cols // self.lookup_params.width
+        return 0
+
+    def lookup_marker_gid(self):
+        """Index of the lookup-marker gate, or None."""
+        return next((i for i, g in enumerate(self.gates) if g.is_lookup_marker), None)
 
     def stacked_table_columns(self, width: int) -> np.ndarray:
         """(width + 1, n) table setup columns (see stack_tables)."""

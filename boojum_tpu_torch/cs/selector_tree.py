@@ -8,8 +8,8 @@ packed into a variable-depth binary selector tree so that high-degree /
 constant-hungry gates sit near the root (short selector paths) and cheap
 gates absorb depth. Selector path bits occupy the leading constant columns
 along each row's path; the gate's own constants start at column
-`len(path)`. Lookup gates (a degree-2 marker in the reference) are not
-ported yet.
+`len(path)`. The lookup marker's degree at depth d is max(d, 2): its A
+relations are of degree 2, its selector of degree d.
 """
 
 from __future__ import annotations
@@ -22,8 +22,11 @@ class GateDescription:
     gate_idx: int
     num_constants: int
     degree: int
+    is_lookup: bool = False
 
     def degree_at_depth(self, depth: int) -> int:
+        if self.is_lookup:
+            return max(depth, 2)
         return depth + self.degree
 
 

@@ -1,7 +1,7 @@
 """CS data model: geometry and lookup parameters.
 
-Places are plain ints with the JAX package's tag bit: variable k is 2k
-(witness places, 2k + 1, are not ported), and -1 marks a vacant cell.
+Places are plain ints with the JAX package's tag bit: variable k is 2k,
+witness k (a witness-column value) is 2k + 1, and -1 marks a vacant cell.
 """
 
 from dataclasses import dataclass
@@ -24,8 +24,9 @@ class LookupParameters:
     width: key and value columns per sub-argument (the table id excluded);
     num_repetitions: sub-arguments per row in specialized mode;
     share_table_id: the table id is one shared constant column per row;
-    use_specialized_columns: dedicated lookup columns (the only mode
-    ported) rather than tuples on marker rows of the general columns.
+    use_specialized_columns: dedicated lookup columns rather than tuples on
+    marker rows of the general columns (general mode, where the
+    sub-arguments are the general columns // width).
     """
 
     width: int = 0

@@ -47,6 +47,16 @@ KERNELS = {
     ),
     "fri_fold": ("fri_fold", "boojum_tpu/prover/pallas_sweep.py:858 _fold_body"),
 }
+# the quotient sweep's standalone entries (prover/quotient_sweep.py): the
+# same launch with parts switched off, counted as the sweep's launches ->
+# the TPU entry each replaces
+SWEEP_ENTRIES = {
+    "cp_quotient": "boojum_tpu/prover/pallas_sweep.py:680 cp_quotient",
+    "lookup_quotient": "boojum_tpu/prover/pallas_sweep.py:764 lookup_quotient",
+    "lookup_quotient_general":
+        "boojum_tpu/prover/pallas_sweep.py:776 lookup_quotient_general",
+    "gate_terms_fn": "boojum_tpu/prover/pallas_sweep.py:788 gate_terms_fn",
+}
 LIBRARIES = ("ntt", "poseidon2", "quotient_sweep", "fri_fold")
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -66,10 +76,9 @@ _SIGNATURES = {
         "bt_poseidon2_node_hash": (_P, _LL, _P, _P),
     },
     "quotient_sweep": {
-        "bt_quotient_sweep": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-            _LL, _P, _P, _P,
-        ),
+        # 11 operand blocks, table, program, constants; Ct, chunk degree,
+        # alpha count, parts; n; the two outputs and the stream
+        "bt_quotient_sweep": (*(_P,) * 14, _I, _I, _I, _I, _LL, _P, _P, _P),
     },
     "fri_fold": {
         "bt_fri_fold": (_P, _P, _LL, _U64, _U64, _P, _P, _P, _P),

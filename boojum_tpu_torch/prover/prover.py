@@ -1,5 +1,6 @@
 """The 5-round IOP prover on one device (the JAX package's prover.py
-_prove_impl, meshless and materialized, with specialized-column lookups).
+_prove_impl, meshless and materialized, with witness columns and lookups
+in specialized or general-purpose columns).
 
 Rounds (the transcript order is the protocol; the verifier replays it):
   0. absorb the setup cap and the public inputs
@@ -12,12 +13,13 @@ Rounds (the transcript order is the protocol; the verifier replays it):
      lookup polynomials)                                          ... DEEP
   5. DEEP codeword -> FRI -> proof of work -> query openings
 
-Oracles: witness [general copy | lookup copy | multiplicities]; setup
-[sigma | constants | table-id | table columns]; stage 2 [z | partials |
-A_i | B], each ext polynomial as its (c0, c1) base column pair; quotient
-[q_0 c0, q_0 c1, ...]. Every polynomial op runs on the device: the
-kernels carry the NTTs, LDEs, Merkle hashing, quotient sweep and FRI folds,
-plain PyTorch the rest; the host runs the transcript and assembles queries.
+Oracles: witness [general copy | lookup copy | witness columns |
+multiplicities]; setup [sigma | constants (+ table id) | table columns];
+stage 2 [z | partials | A_i | B], each ext polynomial as its (c0, c1) base
+column pair; quotient [q_0 c0, q_0 c1, ...], as prover/layout.py lays them
+out. Every polynomial op runs on the device: the kernels carry the NTTs,
+LDEs, Merkle hashing, quotient sweep and FRI folds, plain PyTorch the rest;
+the host runs the transcript and assembles queries.
 
 Each transcript step reports (round, label, values) to `log` with the same
 labels as the JAX package's prover, so the two checkpoint streams compare
@@ -53,8 +55,9 @@ from .config import ProofConfig
 from .fri import fri_prove
 from .pow import pow_grind
 from .proof import OracleQuery, Proof, SingleRoundQueries
-from .quotient_sweep import SweepPlan, coset_terms, sweep_table
-from .stages import compute_lookup_polys, stage2_columns
+from .layout import OracleLayout
+from .quotient_sweep import SweepPlan, coset_terms, selector_from_consts, sweep_table
+from .stages import compute_lookup_polys, compute_lookup_polys_general, stage2_columns
 
 
 @lru_cache(maxsize=4)
@@ -139,11 +142,10 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     N = n * L
     cap = config.merkle_tree_cap_size
     geometry = assembly.geometry
-    Cg = assembly.num_copy_cols
-    Ct = assembly.num_copy_cols_total
-    lookups = assembly.lookups_enabled
-    lp = assembly.lookup_params
-    R = assembly.num_lookup_subargs
+    layout = OracleLayout.for_assembly(assembly, setup.selector_paths)
+    Ct = layout.Ct
+    lookups = layout.lookups
+    R = layout.R
     Q = setup.vk.quotient_degree
     omega = gl.omega(log_n)
 
@@ -157,8 +159,12 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     # ---- round 1: witness commitment -------------------------------------
     clock.start("round1_witness_commit")
     host_cols = [assembly.copy_cols_values]
+    if layout.specialized:
+        host_cols.append(assembly.lookup_cols_values)
+    if layout.W:
+        host_cols.append(assembly.wit_cols_values)
     if lookups:
-        host_cols += [assembly.lookup_cols_values, assembly.multiplicities[None, :]]
+        host_cols.append(assembly.multiplicities[None, :])
     wit_vals = gf.from_numpy(np.concatenate(host_cols, axis=0), device)
     wit_mono, wit_lde, wit_tree = _commit(wit_vals, L, cap)
     t.witness_merkle_tree_cap(wit_tree.get_cap())
@@ -181,11 +187,18 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
         geometry.max_allowed_constraint_degree,
     )
     if lookups:
-        a_polys, b_poly = compute_lookup_polys(
-            wit_vals[Cg:Ct], gf.from_numpy(setup.constant_cols[-1], device),
-            gf.from_numpy(assembly.stacked_table_columns(lp.width), device),
-            wit_vals[Ct], lookup_beta, lookup_gamma, R, lp.width,
-        )
+        consts = gf.from_numpy(setup.constant_cols, device)
+        tables = gf.from_numpy(assembly.stacked_table_columns(layout.width), device)
+        tuples = wit_vals[layout.lookup_col_base : layout.lookup_col_base + R * layout.width]
+        lk_args = (tuples, consts[layout.tid_const], tables, wit_vals[layout.mult_row])
+        lk_challenges = (lookup_beta, lookup_gamma, R, layout.width)
+        if layout.specialized:
+            a_polys, b_poly = compute_lookup_polys(*lk_args, *lk_challenges)
+        else:
+            # the marker selector over H, from the constant columns
+            sel = selector_from_consts(consts, layout.marker_path)
+            a_polys, b_poly = compute_lookup_polys_general(*lk_args, sel, *lk_challenges)
+        del consts, tables
         s2_vals = torch.cat(
             [s2_vals, torch.stack([c for p in [*a_polys, b_poly] for c in p])]
         )
@@ -204,7 +217,7 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     xs_q, l0_q, zh_inv_q = _domain_tables(log_n, Q, str(device))
     scale_q = lde_scale_rows(log_n, Q, device)
     plan = SweepPlan(assembly.gates, setup.selector_paths, geometry, Ct, device,
-                     lp if lookups else None)
+                     assembly.lookup_params if lookups else None)
     table = sweep_table(plan, alpha, beta, gamma, setup.non_residues, device,
                         lookup_beta, lookup_gamma)
     parts0, parts1 = [], []
@@ -250,11 +263,10 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
         (int(a), int(b)) for a, b in zip(gf.to_numpy(evw0), gf.to_numpy(evw1))
     ]
     # the lookup polynomials at 0 are their constant monomial coefficients
-    ab = 2 * plan.num_chunks
-    values_at_0 = []
-    if lookups:
-        c0 = gf.to_numpy(s2_mono[ab:, 0])
-        values_at_0 = [(int(c0[2 * i]), int(c0[2 * i + 1])) for i in range(R + 1)]
+    ab = layout.ab_row
+    c0 = gf.to_numpy(s2_mono[ab:, 0])
+    values_at_0 = [(int(c0[2 * i]), int(c0[2 * i + 1]))
+                   for i in range(layout.num_values_at_0)]
     for v in values_at_z + values_at_z_omega + values_at_0:
         t.witness_field_elements(v)
     checkpoint(4, "evaluations", [values_at_z, values_at_z_omega, values_at_0])

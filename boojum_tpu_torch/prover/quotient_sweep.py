@@ -1,18 +1,24 @@
 """The per-coset quotient sweep (kernel B6, csrc/quotient_sweep.cu).
 
-Replaces boojum_tpu/prover/pallas_sweep.py build_coset_terms (gate,
-copy-permutation and specialized lookup parts) and its XLA twin prover.py
-_u64_sweep_core. For each row of one quotient coset it sums, with alpha^t
-weights in GF(p^2):
+Replaces boojum_tpu/prover/pallas_sweep.py build_coset_terms, its
+standalone entries cp_quotient, lookup_quotient, lookup_quotient_general and
+gate_terms_fn, and their XLA twins (prover.py _u64_sweep_core, the
+stages.py cores). For each row of one quotient coset it sums, with alpha^t
+weights in GF(p^2), three parts, each of which a launch may switch off:
 - the gate terms of every instance of every gate, masked by the gate's
-  selector-path product over the constant columns;
+  selector-path product over the constant columns; a gate reads its copy
+  cells, its witness-column cells and its constants;
 - L0·(z - 1) and, per chunk of copy columns, lhs·prod(den) - rhs·prod(num)
   with num = w + beta·k·x + gamma, den = w + beta·sigma + gamma;
-- with lookups, per sub-argument i: A_i·(Σ_j γ'^j·w_{i,j} + γ'^w·tid + β') - 1,
-  and for the table: B·(Σ_j γ'^j·t_j + γ'^w·t_id + β') - M;
-then multiplies by 1/Z_H. Terms take alpha powers in the JAX package's
-order: every gate term first (gate order, instance, term), then the
-copy-permutation terms, then the lookup sub-arguments and B.
+- with lookups, per sub-argument i: A_i·(Σ_j γ'^j·w_{i,j} + γ'^w·tid + β')
+  - sel, and for the table: B·(Σ_j γ'^j·t_j + γ'^w·t_id + β') - M. In
+  specialized mode the tuples are the lookup copy columns, tid the table-id
+  column and sel 1; in general mode the tuples are the general copy
+  columns, tid the marker's constant column and sel the marker's selector
+  over the constant columns;
+then, in the full sweep, multiplies by 1/Z_H. Terms take alpha powers in the
+JAX package's order: every gate term first (gate order, instance, term),
+then the copy-permutation terms, then the lookup sub-arguments and B.
 
 Gates reach the kernel as data: each gate's captured op program
 (cs/gate_capture.py) is encoded into an int32 table that the kernel and the
@@ -21,22 +27,20 @@ plain version below both interpret, so the CPU tests check the encoding.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from .. import kernels as K
-from ..cs.gate_capture import LOAD_KINDS, OPCODES, capture_gate_program
+from ..cs.gate_capture import OPCODES, capture_gate_program
 from ..field import extension as ext_f
-from ..field import gl
 from ..field import goldilocks as gf
+from .layout import OracleLayout, chunk_columns
 
 MAX_SLOTS = 32  # csrc/quotient_sweep.cu kMaxSlots
-
-
-def chunk_columns(num_cols: int, max_degree: int):
-    """Copy columns in contiguous chunks of at most max_degree columns."""
-    w = max(1, max_degree)
-    return [list(range(i, min(i + w, num_cols))) for i in range(0, num_cols, w)]
+GATES, COPY_PERMUTATION, LOOKUPS = 1, 2, 4  # parts of a launch
+ALL_PARTS = GATES | COPY_PERMUTATION | LOOKUPS
 
 
 def chunk_num_den(copy_vals, sigma_vals, non_residues, xs, beta, gamma, chunks):
@@ -74,16 +78,27 @@ def aggregate_lookup_columns(cols, table_id_col, gpow, beta):
     return acc0, acc1
 
 
+def selector_from_consts(consts, path):
+    """Product over the path bits of c_b or 1 - c_b over the constant
+    columns; None for an empty path (the constant 1)."""
+    sel = None
+    for b, bit in enumerate(path):
+        f = consts[b] if bit else gf.sub(1, consts[b])
+        sel = f if sel is None else gf.mul(sel, f)
+    return sel
+
+
 def num_gate_terms(gates, geometry) -> int:
     return sum(g.num_repetitions(geometry) * g.num_terms for g in gates if g.num_terms)
 
 
-def encode_gate_programs(gates, selector_paths, geometry):
+def encode_gate_programs(gates, selector_paths, geometry, wit_col):
     """(int32 program table, uint64 constant values) for every gate with
-    quotient terms, in gate order (layout in csrc/quotient_sweep.cu).
-    Every cell a program loads lies inside the geometry's copy and constant
-    columns, which the kernel relies on. Raises on a gate that loads witness
-    columns: they are not ported."""
+    quotient terms, in gate order (layout in csrc/quotient_sweep.cu). A load
+    names its block (0: the witness oracle's columns, the witness columns
+    from `wit_col` on; 1: the constant columns) and its column as base +
+    instance·stride. Every cell a program loads lies inside the geometry's
+    copy, witness and constant columns, which the kernel relies on."""
     num_consts = geometry.num_constant_columns
     prog = [0]
     kvals = []
@@ -95,24 +110,24 @@ def encode_gate_programs(gates, selector_paths, geometry):
             raise ValueError(f"gate {gate.name}: {p.num_slots} slots > {MAX_SLOTS}")
         if len(p.terms) != gate.num_terms:
             raise ValueError(f"gate {gate.name}: term count mismatch")
-        if any(kind == "w" for _slot, kind, _idx in p.loads):
-            raise NotImplementedError(
-                f"gate {gate.name} loads witness columns, which are not ported yet"
-            )
         path = selector_paths[gid]
-        reps, pw = gate.num_repetitions(geometry), gate.principal_width
+        reps, pw, ww = (gate.num_repetitions(geometry), gate.principal_width,
+                        gate.witness_width)
+        limits = {"v": pw, "w": ww, "c": num_consts - len(path)}
         for _slot, kind, idx in p.loads:
-            limit = pw if kind == "v" else num_consts - len(path)
-            if not 0 <= idx < limit:
-                raise ValueError(f"gate {gate.name}: {kind} load {idx} outside {limit}")
-        if reps * pw > geometry.num_columns_under_copy_permutation or len(path) > num_consts:
+            if not 0 <= idx < limits[kind]:
+                raise ValueError(f"gate {gate.name}: {kind} load {idx} outside {limits[kind]}")
+        if (reps < 1 or reps * pw > geometry.num_columns_under_copy_permutation
+                or reps * ww > geometry.num_witness_columns or len(path) > num_consts):
             raise ValueError(f"gate {gate.name} does not fit the geometry")
         prog[0] += 1
-        prog += [len(path), *path]
-        prog += [reps, pw, len(path), p.num_slots]
+        prog += [len(path), *path, reps, p.num_slots]
+        # (block, base, stride) of each load kind
+        where = {"v": (0, 0, pw), "w": (0, wit_col, ww), "c": (1, len(path), 0)}
         prog.append(len(p.loads))
         for slot, kind, idx in p.loads:
-            prog += [slot, LOAD_KINDS[kind], idx]
+            block, base, stride = where[kind]
+            prog += [slot, block, base + idx, stride]
         prog.append(len(p.consts))
         for slot, value in p.consts:
             prog += [slot, len(kvals)]
@@ -122,77 +137,174 @@ def encode_gate_programs(gates, selector_paths, geometry):
             prog += [OPCODES[op], dst, a, b]
         prog.append(len(p.terms))
         prog += p.terms
-    return np.array(prog, dtype=np.int32), np.array(kvals, dtype=np.uint64)
+    return prog, kvals
+
+
+def encode_lookup_header(layout: OracleLayout) -> list:
+    """R, width, the first tuple column, the table id's constant column and
+    the selector path (empty in specialized mode, where sel is 1)."""
+    if not layout.lookups:
+        return [0, 0, 0, 0, 0]
+    path = list(layout.marker_path)
+    return [layout.R, layout.width, layout.lookup_col_base, layout.tid_const,
+            len(path), *path]
 
 
 class SweepPlan:
-    """The structure of one circuit's sweep: program tables on a device and
-    the counts the kernel needs.
-
-    Operand layout: witness rows [general copy (Cg) | lookup copy | M];
-    setup rows [sigma (Ct) | constants (num_consts, the table id last) |
-    table columns (width + 1)]; stage-2 rows [z | partials | A_i | B]. The
-    lookup rows exist only when `lookup_params` is enabled."""
+    """The structure of one circuit's sweep: the program table on a device
+    and the counts the kernel needs. Row layout: `layout`
+    (prover/layout.py)."""
 
     def __init__(self, gates, selector_paths, geometry, num_copy_cols, device,
                  lookup_params=None):
-        prog, kvals = encode_gate_programs(gates, selector_paths, geometry)
-        self.prog_np = prog
-        self.kvals_np = kvals
-        self.prog = torch.from_numpy(prog).to(device)
-        self.kvals = gf.from_numpy(kvals if kvals.size else np.zeros(1, np.uint64),
-                                   device)
-        lookups = lookup_params is not None and lookup_params.is_enabled
-        self.Cg = geometry.num_columns_under_copy_permutation
-        self.Ct = num_copy_cols
-        self.R = lookup_params.num_repetitions if lookups else 0
-        self.width = lookup_params.width if lookups else 0
-        if self.Ct != self.Cg + self.R * self.width:
-            raise ValueError(f"{self.Ct} copy columns do not fit {self.Cg} general "
-                             f"columns and {self.R}x{self.width} lookup columns")
-        self.num_consts = geometry.num_constant_columns + (1 if lookups else 0)
-        self.num_setup_cols = (self.Ct + self.num_consts
-                               + (self.width + 1 if lookups else 0))
-        self.num_wit_rows = self.Ct + (1 if lookups else 0)
-        self.chunk_deg = max(1, geometry.max_allowed_constraint_degree)
-        self.num_chunks = len(chunk_columns(num_copy_cols, self.chunk_deg))
-        self.num_s2_rows = 2 * self.num_chunks + (2 * (self.R + 1) if lookups else 0)
-        self.num_gate_terms = num_gate_terms(gates, geometry)
-        self.num_alpha = (self.num_gate_terms + 1 + self.num_chunks
-                          + (self.R + 1 if lookups else 0))
+        layout = OracleLayout.build(geometry, lookup_params, gates, selector_paths)
+        if num_copy_cols != layout.Ct:
+            raise ValueError(f"{num_copy_cols} copy columns do not fit the layout's "
+                             f"{layout.Ct}")
+        self._init(layout, gates, selector_paths, geometry, ALL_PARTS, device)
+
+    @classmethod
+    def entry(cls, layout, gates, selector_paths, geometry, parts, device):
+        """A plan for the parts `parts` alone (a standalone entry)."""
+        plan = cls.__new__(cls)
+        plan._init(layout, gates, selector_paths, geometry, parts, device)
+        return plan
+
+    def _init(self, layout, gates, selector_paths, geometry, parts, device):
+        if not layout.lookups:
+            parts &= ~LOOKUPS
+        gate_prog, kvals = ([0], [])
+        if parts & GATES:
+            gate_prog, kvals = encode_gate_programs(gates, selector_paths, geometry,
+                                                    layout.wit_col)
+        self.layout = layout
+        self.parts = parts
+        self.prog_np = np.array(encode_lookup_header(layout) + gate_prog, dtype=np.int32)
+        self.kvals_np = np.array(kvals, dtype=np.uint64)
+        self.prog = torch.from_numpy(self.prog_np).to(device)
+        self.kvals = gf.from_numpy(kvals if kvals else np.zeros(1, np.uint64), device)
+        self.Ct = layout.Ct if parts & COPY_PERMUTATION else 0
+        self.chunk_deg = max(1, layout.max_degree)
+        self.num_gate_terms = num_gate_terms(gates, geometry) if parts & GATES else 0
+        self.num_alpha = (self.num_gate_terms
+                          + (1 + layout.num_chunks if parts & COPY_PERMUTATION else 0)
+                          + (layout.R + 1 if parts & LOOKUPS else 0))
         self.table_len = (4 + self.Ct + 2 * self.num_alpha
-                          + (2 * (self.width + 2) if lookups else 0))
+                          + (2 * (layout.width + 2) if parts & LOOKUPS else 0))
+
+    def operand_shapes(self, n: int) -> dict:
+        """The shape of every operand block the plan's parts read (the
+        kernel reads nothing else)."""
+        lo = self.layout
+        shapes = {"cols": (lo.Ct + lo.W, n)}
+        if self.parts & GATES:
+            shapes.update(consts=(lo.K, n))
+        if self.parts & COPY_PERMUTATION:
+            shapes.update(sigma=(lo.Ct, n), s2=(lo.ab_row, n), zs=(2, n), xs=(n,), l0=(n,))
+        if self.parts & LOOKUPS:
+            shapes.update(consts=(lo.K, n), tables=(lo.width + 1, n),
+                          lk=(2 * (lo.R + 1), n), mult=(n,))
+        return shapes
+
+    @property
+    def num_wit_rows(self) -> int:
+        return self.layout.num_wit_rows
+
+    @property
+    def num_setup_cols(self) -> int:
+        return self.layout.num_setup_rows
+
+    @property
+    def num_s2_rows(self) -> int:
+        return self.layout.num_s2_rows
 
 
-def sweep_table(plan: SweepPlan, alpha, beta, gamma, non_residues, device,
-                lookup_beta=None, lookup_gamma=None):
-    """The uint64 scalar table: beta, gamma, non-residues, alpha powers (c0
-    then c1) and, with lookups, beta' and the powers gamma'^0..gamma'^w as
-    (c0, c1) pairs."""
-    pows = ext_f.powers_s(alpha, plan.num_alpha)
+def scalar_table(plan: SweepPlan, alpha_pows, beta=(0, 0), gamma=(0, 0), non_residues=(),
+                 lookup_beta=(0, 0), lookup_gamma=(0, 0), device="cpu"):
+    """The uint64 scalar table: beta, gamma, the Ct non-residues, the alpha
+    powers (c0 then c1) and, with lookups, beta' and the powers
+    gamma'^0..gamma'^w as (c0, c1) pairs."""
+    if len(alpha_pows) != plan.num_alpha or len(non_residues) != plan.Ct:
+        raise ValueError(f"the plan takes {plan.num_alpha} alpha powers and "
+                         f"{plan.Ct} non-residues")
     vals = [beta[0], beta[1], gamma[0], gamma[1]]
     vals += [int(k) for k in non_residues]
-    vals += [p[0] for p in pows] + [p[1] for p in pows]
-    if plan.R:
+    vals += [p[0] for p in alpha_pows] + [p[1] for p in alpha_pows]
+    if plan.parts & LOOKUPS:
         vals += [lookup_beta[0], lookup_beta[1]]
-        for g in ext_f.powers_s(lookup_gamma, plan.width + 1):
+        for g in ext_f.powers_s(lookup_gamma, plan.layout.width + 1):
             vals += [g[0], g[1]]
     return gf.from_numpy(np.array(vals, dtype=np.uint64), device)
 
 
-def coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table):
-    """The plain PyTorch sweep: interprets the same tables as the kernel."""
+def sweep_table(plan: SweepPlan, alpha, beta, gamma, non_residues, device,
+                lookup_beta=None, lookup_gamma=None):
+    """The full sweep's scalar table from the challenges."""
+    return scalar_table(plan, ext_f.powers_s(alpha, plan.num_alpha), beta, gamma,
+                        non_residues, lookup_beta or (0, 0), lookup_gamma or (0, 0), device)
+
+
+@dataclass
+class Operands:
+    """The column blocks one launch reads, each (rows, n) with row stride n;
+    a block a launch's parts do not read may be None. zhinv None: the terms
+    are not multiplied by 1/Z_H."""
+
+    n: int
+    cols: torch.Tensor | None = None  # copy columns (Ct), then witness columns (W)
+    mult: torch.Tensor | None = None  # multiplicities (n,)
+    sigma: torch.Tensor | None = None  # sigma columns (Ct)
+    consts: torch.Tensor | None = None  # constant columns
+    tables: torch.Tensor | None = None  # stacked table columns (width + 1)
+    s2: torch.Tensor | None = None  # z and the partial products
+    lk: torch.Tensor | None = None  # A_i and B pairs
+    zs: torch.Tensor | None = None  # z(w·x) pair
+    xs: torch.Tensor | None = None
+    l0: torch.Tensor | None = None
+    zhinv: torch.Tensor | None = None
+
+    FIELDS = ("cols", "mult", "sigma", "consts", "tables", "s2", "lk", "zs", "xs", "l0",
+              "zhinv")
+
+    def tensors(self):
+        return [getattr(self, f) for f in self.FIELDS]
+
+
+def split_oracles(plan: SweepPlan, wit, setup, s2, zs, xs, l0, zhinv) -> Operands:
+    """The full sweep's operands from the coset evaluations of the witness,
+    setup and stage-2 oracles in the plan's layout."""
+    lo = plan.layout
     n = xs.shape[0]
+    for t, what, rows in (
+        (wit, "witness", lo.num_wit_rows), (setup, "setup", lo.num_setup_rows),
+        (s2, "stage 2", lo.num_s2_rows), (zs, "shifted z", 2),
+    ):
+        K.require(t, f"sweep {what}", (rows, n))
+    for t, what in ((xs, "xs"), (l0, "L0"), (zhinv, "1/Z_H")):
+        K.require(t, f"sweep {what}", (n,))
+    Ct, W = lo.Ct, lo.W
+    return Operands(
+        n=n, cols=wit[: Ct + W], mult=wit[lo.mult_row] if lo.lookups else None,
+        sigma=setup[:Ct], consts=setup[Ct : Ct + lo.K],
+        tables=setup[lo.table_row :] if lo.lookups else None,
+        s2=s2[: lo.ab_row], lk=s2[lo.ab_row :] if lo.lookups else None,
+        zs=zs, xs=xs, l0=l0, zhinv=zhinv,
+    )
+
+
+def sweep_plain(plan: SweepPlan, ops: Operands, table):
+    """The plain PyTorch sweep: interprets the same tables as the kernel."""
+    n = ops.n
     Ct = plan.Ct
     tab = [gf.as_u64(v) for v in table.tolist()]
     beta, gamma = tuple(tab[0:2]), tuple(tab[2:4])
     ks = tab[4 : 4 + Ct]
     a0 = tab[4 + Ct : 4 + Ct + plan.num_alpha]
-    a1 = tab[4 + Ct + plan.num_alpha :]
-    consts = setup[Ct : Ct + plan.num_consts]
+    a1 = tab[4 + Ct + plan.num_alpha : 4 + Ct + 2 * plan.num_alpha]
+    consts = ops.consts
     prog = plan.prog_np.tolist()
     kvals = [int(v) for v in plan.kvals_np]
-    zero = torch.zeros(n, dtype=torch.int64, device=xs.device)
+    zero = torch.zeros(n, dtype=torch.int64, device=table.device)
     acc = (zero, zero)
     t = 0
     pc = 0
@@ -202,26 +314,21 @@ def coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table):
         pc += k
         return prog[pc - k : pc]
 
+    R, w, col_base, tid_const, mk_len = take(5)
+    mk_path = take(mk_len)
     (num_gates,) = take(1)
-    for _ in range(num_gates):
+    for _ in range(num_gates if plan.parts & GATES else 0):
         (path_len,) = take(1)
-        path = take(path_len)
-        reps, pw, const_off, _num_slots = take(4)
-        sel = None
-        for b, bit in enumerate(path):
-            f = consts[b] if bit else gf.sub(1, consts[b])
-            sel = f if sel is None else gf.mul(sel, f)
+        sel = selector_from_consts(consts, take(path_len))
+        reps, _num_slots = take(2)
         body = pc
         gate_acc = (zero, zero)
         for inst in range(reps):
             pc = body
             slots = {}
             for _i in range(take(1)[0]):
-                slot, kind, idx = take(3)
-                if kind == LOAD_KINDS["v"]:
-                    slots[slot] = wit[inst * pw + idx]
-                else:
-                    slots[slot] = consts[const_off + idx]
+                slot, block, base, stride = take(4)
+                slots[slot] = (consts if block else ops.cols)[base + inst * stride]
             for _i in range(take(1)[0]):
                 slot, k = take(2)
                 slots[slot] = kvals[k]
@@ -245,73 +352,167 @@ def coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table):
         if sel is not None:
             gate_acc = ext_f.mul_by_base(gate_acc, sel)
         acc = ext_f.add(acc, gate_acc)
-    # copy permutation
-    z = (s2[0], s2[1])
-    zm1 = (gf.sub(z[0], 1), z[1])
-    acc = ext_f.add(acc, ext_f.mul(ext_f.mul_by_base(zm1, l0), (a0[t], a1[t])))
-    t += 1
-    chunks = chunk_columns(Ct, plan.chunk_deg)
-    nums, dens = chunk_num_den(wit, setup, ks, xs, beta, gamma, chunks)
-    prev = z
-    for j in range(len(chunks)):
-        lhs = (s2[2 + 2 * j], s2[3 + 2 * j]) if j + 1 < len(chunks) else (zs[0], zs[1])
-        term = ext_f.sub(ext_f.mul(lhs, (dens[0][j], dens[1][j])),
-                         ext_f.mul(prev, (nums[0][j], nums[1][j])))
-        acc = ext_f.add(acc, ext_f.mul(term, (a0[t], a1[t])))
+    if plan.parts & COPY_PERMUTATION:
+        s2 = ops.s2
+        z = (s2[0], s2[1])
+        zm1 = (gf.sub(z[0], 1), z[1])
+        acc = ext_f.add(acc, ext_f.mul(ext_f.mul_by_base(zm1, ops.l0), (a0[t], a1[t])))
         t += 1
-        prev = lhs
-    if plan.R:
-        R, w = plan.R, plan.width
+        chunks = chunk_columns(Ct, plan.chunk_deg)
+        nums, dens = chunk_num_den(ops.cols, ops.sigma, ks, ops.xs, beta, gamma, chunks)
+        prev = z
+        for j in range(len(chunks)):
+            lhs = ((s2[2 + 2 * j], s2[3 + 2 * j]) if j + 1 < len(chunks)
+                   else (ops.zs[0], ops.zs[1]))
+            term = ext_f.sub(ext_f.mul(lhs, (dens[0][j], dens[1][j])),
+                             ext_f.mul(prev, (nums[0][j], nums[1][j])))
+            acc = ext_f.add(acc, ext_f.mul(term, (a0[t], a1[t])))
+            t += 1
+            prev = lhs
+    if plan.parts & LOOKUPS:
         lk = tab[4 + Ct + 2 * plan.num_alpha :]
         lbeta = (lk[0], lk[1])
         gpow = [(lk[2 + 2 * j], lk[3 + 2 * j]) for j in range(w + 1)]
-        ab = 2 * len(chunks)
+        sel = selector_from_consts(consts, mk_path)
         for i in range(R):
-            cols = [wit[plan.Cg + i * w + j] for j in range(w)]
-            den = aggregate_lookup_columns(cols, consts[plan.num_consts - 1], gpow, lbeta)
-            term = ext_f.mul((s2[ab + 2 * i], s2[ab + 2 * i + 1]), den)
-            term = (gf.sub(term[0], 1), term[1])
+            cols = [ops.cols[col_base + i * w + j] for j in range(w)]
+            den = aggregate_lookup_columns(cols, consts[tid_const], gpow, lbeta)
+            term = ext_f.mul((ops.lk[2 * i], ops.lk[2 * i + 1]), den)
+            term = (gf.sub(term[0], 1 if sel is None else sel), term[1])
             acc = ext_f.add(acc, ext_f.mul(term, (a0[t], a1[t])))
             t += 1
-        tcols = setup[Ct + plan.num_consts :]
+        tcols = ops.tables
         den = aggregate_lookup_columns([tcols[j] for j in range(w)], tcols[w], gpow, lbeta)
-        term = ext_f.mul((s2[ab + 2 * R], s2[ab + 2 * R + 1]), den)
-        term = (gf.sub(term[0], wit[Ct]), term[1])
+        term = ext_f.mul((ops.lk[2 * R], ops.lk[2 * R + 1]), den)
+        term = (gf.sub(term[0], ops.mult), term[1])
         acc = ext_f.add(acc, ext_f.mul(term, (a0[t], a1[t])))
-    return gf.mul(acc[0], zhinv), gf.mul(acc[1], zhinv)
+    if ops.zhinv is None:
+        return acc
+    return gf.mul(acc[0], ops.zhinv), gf.mul(acc[1], ops.zhinv)
 
 
-def coset_terms(plan: SweepPlan, wit, setup, s2, zs, xs, l0, zhinv, table):
-    """Quotient terms over one coset: (t0, t1), each (n,) (kernel B6).
-
-    wit, setup and s2 are the coset evaluations of the witness, setup and
-    stage-2 oracles in the plan's layout, zs (2, n) those of the shifted z;
-    xs, l0, zhinv (n,) the coset's x, L0(x) and 1/Z_H(x)."""
-    n = xs.shape[0]
-    for t, what, rows in (
-        (wit, "witness", plan.num_wit_rows), (setup, "setup", plan.num_setup_cols),
-        (s2, "stage 2", plan.num_s2_rows), (zs, "shifted z", 2),
-    ):
-        K.require(t, f"sweep {what}", (rows, n))
-    for t, what in ((xs, "xs"), (l0, "L0"), (zhinv, "1/Z_H")):
-        K.require(t, f"sweep {what}", (n,))
+def sweep(plan: SweepPlan, ops: Operands, table):
+    """The terms of one launch: (t0, t1), each (n,) (kernel B6)."""
     K.require(table, "sweep table", (plan.table_len,))
-    dev = K.same_device(wit, setup, s2, zs, xs, l0, zhinv, table, plan.prog)
+    shapes = plan.operand_shapes(ops.n)
+    if ops.zhinv is not None:
+        shapes["zhinv"] = (ops.n,)
+    for field, shape in shapes.items():
+        K.require(getattr(ops, field), f"sweep {field}", shape)
+    present = [t for t in ops.tensors() if t is not None]
+    dev = K.same_device(table, plan.prog, *present)
     if dev.type == "cpu":
-        return coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table)
-    out0 = torch.empty(n, dtype=torch.int64, device=dev)
-    out1 = torch.empty(n, dtype=torch.int64, device=dev)
+        return sweep_plain(plan, ops, table)
+    out0 = torch.empty(ops.n, dtype=torch.int64, device=dev)
+    out1 = torch.empty(ops.n, dtype=torch.int64, device=dev)
     lib = K.library("quotient_sweep")
     with torch.cuda.device(dev):
         K.count("quotient_sweep")
         K.check(
             lib.bt_quotient_sweep(
-                K.ptr(wit), K.ptr(setup), K.ptr(s2), K.ptr(zs), K.ptr(xs),
-                K.ptr(l0), K.ptr(zhinv), K.ptr(table), K.ptr(plan.prog),
-                K.ptr(plan.kvals), plan.Cg, plan.Ct, plan.num_consts,
-                plan.chunk_deg, plan.num_alpha, plan.R, plan.width,
-                n, K.ptr(out0), K.ptr(out1), K.stream(dev),
+                *(K.ptr(t) for t in ops.tensors()), K.ptr(table), K.ptr(plan.prog),
+                K.ptr(plan.kvals), plan.Ct, plan.chunk_deg, plan.num_alpha, plan.parts,
+                ops.n, K.ptr(out0), K.ptr(out1), K.stream(dev),
             ),
             "quotient_sweep",
         )
     return out0, out1
+
+
+def coset_terms_plain(plan, wit, setup, s2, zs, xs, l0, zhinv, table):
+    """The plain version of coset_terms."""
+    return sweep_plain(plan, split_oracles(plan, wit, setup, s2, zs, xs, l0, zhinv), table)
+
+
+def coset_terms(plan: SweepPlan, wit, setup, s2, zs, xs, l0, zhinv, table):
+    """Quotient terms over one coset: (t0, t1), each (n,).
+
+    wit, setup and s2 are the coset evaluations of the witness, setup and
+    stage-2 oracles in the plan's layout, zs (2, n) those of the shifted z;
+    xs, l0, zhinv (n,) the coset's x, L0(x) and 1/Z_H(x)."""
+    return sweep(plan, split_oracles(plan, wit, setup, s2, zs, xs, l0, zhinv), table)
+
+
+# ---------------------------------------------------------------------------
+# Standalone entries: one part each, same launch, no 1/Z_H. Each *_launch
+# builds (plan, operands, scalar table) for sweep() or sweep_plain().
+# ---------------------------------------------------------------------------
+
+
+def cp_quotient_launch(s2, zs, copy, sigma, xs, l0, beta, gamma, alpha_pows,
+                       non_residues, max_degree):
+    Ct = copy.shape[0]
+    layout = OracleLayout(Cg=Ct, W=0, num_geometry_consts=0, max_degree=max_degree)
+    plan = SweepPlan.entry(layout, [], [], None, COPY_PERMUTATION, copy.device)
+    table = scalar_table(plan, alpha_pows, beta, gamma, non_residues, device=copy.device)
+    return plan, Operands(n=xs.shape[0], cols=copy, sigma=sigma, s2=s2, zs=zs, xs=xs,
+                          l0=l0), table
+
+
+def cp_quotient(*args):
+    """The copy-permutation terms alone (pallas_sweep.py cp_quotient):
+    (s2, zs, copy, sigma, xs, l0, beta, gamma, alpha_pows, non_residues,
+    max_degree) with s2 (2·chunks, n) = [z | partials], zs (2, n) the
+    shifted z, copy and sigma (Ct, n), and 1 + chunks alpha powers (host
+    ext scalars)."""
+    return sweep(*cp_quotient_launch(*args))
+
+
+def _lookup_launch(ab, cols, consts, marker_path, tables, mult, lookup_beta, lookup_gamma,
+                   alpha_pows, num_subargs, width):
+    R, w = int(num_subargs), int(width)
+    layout = OracleLayout(Cg=R * w, W=0, num_geometry_consts=consts.shape[0], max_degree=1,
+                          mode="general", width=w, R=R, marker_path=marker_path)
+    plan = SweepPlan.entry(layout, [], [], None, LOOKUPS, cols.device)
+    table = scalar_table(plan, alpha_pows, lookup_beta=lookup_beta,
+                         lookup_gamma=lookup_gamma, device=cols.device)
+    return plan, Operands(n=mult.shape[0], cols=cols, mult=mult, consts=consts,
+                          tables=tables, lk=ab), table
+
+
+def lookup_quotient_launch(ab, lookup_cols, table_id, tables, mult, lookup_beta,
+                           lookup_gamma, alpha_pows, num_repetitions, width):
+    return _lookup_launch(ab, lookup_cols, table_id[None], (), tables, mult, lookup_beta,
+                          lookup_gamma, alpha_pows, num_repetitions, width)
+
+
+def lookup_quotient(*args):
+    """The specialized lookup terms alone (pallas_sweep.py lookup_quotient):
+    (ab, lookup_cols, table_id, tables, mult, lookup_beta, lookup_gamma,
+    alpha_pows, num_repetitions, width) with ab (2(R + 1), n) = [A_0 c0,
+    A_0 c1, ..., B c0, B c1], lookup_cols (R·width, n), table_id and mult
+    (n,), tables (width + 1, n) and R + 1 alpha powers."""
+    return sweep(*lookup_quotient_launch(*args))
+
+
+def lookup_quotient_general_launch(ab, gen_cols, table_id, tables, mult, sel, lookup_beta,
+                                   lookup_gamma, alpha_pows, num_subargs, width):
+    return _lookup_launch(ab, gen_cols, torch.stack([sel, table_id]), (1,), tables, mult,
+                          lookup_beta, lookup_gamma, alpha_pows, num_subargs, width)
+
+
+def lookup_quotient_general(*args):
+    """The general-mode lookup terms alone (pallas_sweep.py
+    lookup_quotient_general): as lookup_quotient over the general copy
+    columns, with the marker selector `sel` (n,) after mult, each A_i·den_i
+    minus sel."""
+    return sweep(*lookup_quotient_general_launch(*args))
+
+
+def gate_terms_fn(gates, selector_paths, geometry, device="cuda"):
+    """The gate terms alone (pallas_sweep.py gate_terms_fn): returns
+    fn(copy (Cg, n), wit (W, n) or None, consts (K, n), alpha_pows);
+    fn.launch takes the same arguments and builds the launch."""
+    plan = SweepPlan.entry(OracleLayout.build(geometry), gates, selector_paths, geometry,
+                           GATES, device)
+
+    def launch(copy, wit, consts, alpha_pows):
+        table = scalar_table(plan, alpha_pows, device=copy.device)
+        cols = copy if wit is None else torch.cat([copy, wit])
+        return plan, Operands(n=copy.shape[1], cols=cols, consts=consts), table
+
+    def fn(*args):
+        return sweep(*launch(*args))
+
+    fn.launch = launch
+    return fn

@@ -3,10 +3,11 @@
 Sigma columns come from a vectorized cycle walk over the copy placement,
 constant columns from the degree-aware selector tree; both are built in
 numpy on the host, then interpolated, low-degree-extended and
-Merkle-committed on the device (kernels B2, B3, B5). Setup column order:
-[sigma over every copy column, the lookup columns included (C) | constants
-(K, then the table-id column when lookups are on) | stacked table columns
-(width + 1, lookups only)].
+Merkle-committed on the device (kernels B2, B3, B5). Setup column order
+(prover/layout.py): [sigma over every copy column, the lookup columns
+included (C) | constants (K, then the table-id column in specialized mode;
+in general mode the table id is the marker row's gate constant) | stacked
+table columns (width + 1, lookups only)].
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ..field import gl
 from ..field import goldilocks as gf
 from ..merkle import MerkleTreeWithCap, commit_layers_device
 from ..ntt import lde_from_monomial, monomial_from_values
+from .layout import OracleLayout
 
 
 def build_selector_tree(gates):
@@ -31,6 +33,7 @@ def build_selector_tree(gates):
             gate_idx=i,
             num_constants=g.num_constants,
             degree=g.max_degree,
+            is_lookup=g.is_lookup_marker,
         )
         for i, g in enumerate(gates)
     ]
@@ -196,12 +199,16 @@ def quotient_degree_for(assembly, tree) -> int:
 def commit_setup(assembly, config, sigma, consts, selector_paths,
                  non_residues, quotient_degree, device) -> SetupData:
     """Interpolate, extend and commit the setup columns; build the VK.
-    With lookups, `consts` ends with the table-id column and the assembly's
-    stacked tables follow it."""
+    In specialized mode `consts` ends with the table-id column; with
+    lookups the assembly's stacked tables follow the constants."""
+    layout = OracleLayout.for_assembly(assembly, selector_paths)
+    if sigma.shape[0] != layout.Ct or consts.shape[0] != layout.K:
+        raise ValueError(f"setup of {sigma.shape[0]} sigma and {consts.shape[0]} constant "
+                         f"columns, the layout has {layout.Ct} and {layout.K}")
     cols = [sigma, consts]
-    lookups = assembly.lookups_enabled
+    lookups = layout.lookups
     if lookups:
-        cols.append(assembly.stacked_table_columns(assembly.lookup_params.width))
+        cols.append(assembly.stacked_table_columns(layout.width))
     setup_cols = np.concatenate(cols, axis=0)
     monomials = monomial_from_values(gf.from_numpy(setup_cols, device))
     lde = lde_from_monomial(monomials, config.fri_lde_factor)
@@ -222,7 +229,7 @@ def commit_setup(assembly, config, sigma, consts, selector_paths,
         public_input_locations=[(c, r) for (c, r, _v) in assembly.public_inputs],
         setup_merkle_cap=tree.get_cap(),
         num_copy_cols=sigma.shape[0],
-        num_wit_cols=0,
+        num_wit_cols=assembly.num_wit_cols,
         lookup_params=assembly.lookup_params if lookups else None,
         num_lookup_tables=assembly.num_lookup_tables,
         quotient_degree=quotient_degree,
@@ -250,7 +257,7 @@ def generate_setup(assembly, config, device="cuda") -> SetupData:
         np.concatenate([assembly.copy_placement, assembly.lookup_placement], axis=0)
     )
     consts = build_constant_columns(assembly, selector_paths)
-    if assembly.lookups_enabled:
+    if assembly.lookup_mode == "specialized":
         consts = np.concatenate([consts, assembly.lookup_table_id_col[None, :]], axis=0)
     return commit_setup(
         assembly, config, sigma, consts, selector_paths,

@@ -1,5 +1,5 @@
 """Stage 2: the copy-permutation grand product z and its partial products,
-and the lookup polynomials A_i and B.
+and the lookup polynomials A_i and B (specialized and general mode).
 
 Plain PyTorch on word tensors (no Pallas kernel carried this stage in the
 JAX package either): per chunk of copy columns the products of
@@ -16,7 +16,8 @@ import torch
 
 from ..field import extension as ext_f
 from ..field import goldilocks as gf
-from .quotient_sweep import aggregate_lookup_columns, chunk_columns, chunk_num_den
+from .layout import chunk_columns
+from .quotient_sweep import aggregate_lookup_columns, chunk_num_den
 
 
 def z_and_partials(num_all, den_inv_all):
@@ -81,4 +82,19 @@ def compute_lookup_polys(lookup_cols, table_id_col, table_cols, multiplicities,
     ))
     a_polys = [(inv[0][i], inv[1][i]) for i in range(R)]
     b_poly = (gf.mul(inv[0][R], multiplicities), gf.mul(inv[1][R], multiplicities))
+    return a_polys, b_poly
+
+
+def compute_lookup_polys_general(gen_cols, table_id_col, table_cols, multiplicities, sel,
+                                 lookup_beta, lookup_gamma, num_subargs, width):
+    """A_i and B over H in general mode (the JAX package's stages.py
+    compute_lookup_polys_general): the sub-arguments tile the general copy
+    columns gen_cols (R·w, n), the table id is the marker's constant column,
+    and A_i = sel / den_i, zero off the marker rows (sel the marker selector
+    over H, None for the constant 1). B as in compute_lookup_polys."""
+    a_polys, b_poly = compute_lookup_polys(gen_cols, table_id_col, table_cols,
+                                           multiplicities, lookup_beta, lookup_gamma,
+                                           num_subargs, width)
+    if sel is not None:
+        a_polys = [ext_f.mul_by_base(a, sel) for a in a_polys]
     return a_polys, b_poly

@@ -1,9 +1,10 @@
-"""Plain host verifier (python ints), the JAX package's prover/verifier.py
-with specialized-column lookups: transcript replay, the quotient identity at
-z through the same gate evaluators (over GF(p^2) scalars), the
-copy-permutation and lookup relations at z, the lookup sum check
-Σ_i A_i(0) = B(0), then per query the Merkle paths, the DEEP value and the
-FRI chain.
+"""Plain host verifier (python ints), the JAX package's prover/verifier.py:
+transcript replay, the quotient identity at z through the same gate
+evaluators (over GF(p^2) scalars, witness columns included), the
+copy-permutation and lookup relations at z (specialized or general mode,
+where each A relation is gated by the marker's selector), the lookup sum
+check Σ_i A_i(0) = B(0), then per query the Merkle paths, the DEEP value
+and the FRI chain. Column positions come from prover/layout.py.
 """
 
 from __future__ import annotations
@@ -15,22 +16,21 @@ from ..field import gl
 from ..merkle import verify_proof_over_cap
 from ..transcript import BitSource, Poseidon2Transcript
 from .fri import _brev, fold_schedule, fri_verify_queries
+from .layout import OracleLayout
 from .pow import pow_verify
-from .quotient_sweep import chunk_columns
 from .setup import non_residues_for_copy_permutation
 
 W_EXT = (0, 1)  # the extension generator w, w^2 = 7
 
 
 class _ZRowView:
-    """Gate instance cells from the values at z."""
+    """Gate instance cells from the values at z: copy cells from the copy
+    columns, witness cells from the witness columns after them."""
 
-    def __init__(self, wit_vals, const_vals, var_off, const_off):
+    def __init__(self, wit_vals, const_vals, var_off, wit_off, const_off):
         self.v = lambda i: wit_vals[var_off + i]
+        self.w = lambda i: wit_vals[wit_off + i]
         self.c = lambda i: const_vals[const_off + i]
-
-    def w(self, i):
-        raise NotImplementedError("witness columns are not ported yet")
 
 
 def ext_from_pair(c0, c1):
@@ -53,29 +53,24 @@ def verify(vk, proof, gates) -> bool:
     L = vk.fri_lde_factor
     Q = vk.quotient_degree
     log_full = log_n + (L.bit_length() - 1)
-    Ct = vk.num_copy_cols  # every column under the copy permutation
-    Cg = geometry.num_columns_under_copy_permutation
-    lp = vk.lookup_params
-    lookups = lp is not None and lp.is_enabled
-    if lookups and not lp.use_specialized_columns:
-        return False  # general-mode lookups are not ported
-    M = 1 if lookups else 0
-    wdt = lp.width if lookups else 0
-    R = lp.num_repetitions if lookups else 0
-    K = geometry.num_constant_columns + M  # the table-id column last
-    TW = wdt + 1 if lookups else 0
-    if vk.num_wit_cols or Ct != Cg + R * wdt:
-        return False
     if [g.name for g in gates] != list(vk.gate_names):
+        return False
+    try:
+        lo = OracleLayout.build(geometry, vk.lookup_params, gates, vk.selector_paths)
+    except ValueError:
+        return False  # lookups on marker rows, but no lookup-marker gate
+    Ct = lo.Ct  # every column under the copy permutation
+    lookups = lo.lookups
+    wdt, R = lo.width, lo.R
+    if vk.num_copy_cols != Ct or vk.num_wit_cols != lo.W:
         return False
     if len(proof.public_inputs) != len(vk.public_input_locations):
         return False
-    chunks = chunk_columns(Ct, geometry.max_allowed_constraint_degree)
-    S = 2 * len(chunks) + 2 * (R + M)  # z, partials, A_i, B
-    B = (Ct + M) + (Ct + K + TW) + S + 2 * Q
+    chunks = lo.chunks
+    B = lo.num_columns(Q)
     if len(proof.values_at_z) != B or len(proof.values_at_z_omega) != 2:
         return False
-    if len(proof.values_at_0) != R + M:
+    if len(proof.values_at_0) != lo.num_values_at_0:
         return False
 
     # ---- transcript replay ------------------------------------------------
@@ -113,13 +108,14 @@ def verify(vk, proof, gates) -> bool:
 
     # ---- quotient identity at z ------------------------------------------
     vals = [tuple(v) for v in proof.values_at_z]
-    Cw = Ct + M  # witness oracle columns
+    Cw, Cs, S = lo.num_wit_rows, lo.num_setup_rows, lo.num_s2_rows
     wit_vals = vals[:Cw]
-    sigma_vals = vals[Cw : Cw + Ct]
-    const_vals = vals[Cw + Ct : Cw + Ct + K]
-    table_vals = vals[Cw + Ct + K : Cw + Ct + K + TW]
-    s2_vals = vals[Cw + Ct + K + TW : Cw + Ct + K + TW + S]
-    q_vals = vals[Cw + Ct + K + TW + S :]
+    setup_vals = vals[Cw : Cw + Cs]
+    sigma_vals = setup_vals[:Ct]
+    const_vals = setup_vals[Ct : Ct + lo.K]
+    table_vals = setup_vals[lo.table_row :]
+    s2_vals = vals[Cw + Cs : Cw + Cs + S]
+    q_vals = vals[Cw + Cs + S :]
     alpha_pows = _powers_iter(alpha)
     total = ext_f.ZERO_S
     for gid, gate in enumerate(gates):
@@ -135,7 +131,8 @@ def verify(vk, proof, gates) -> bool:
             dst = TermsCollector()
             gate.evaluate(
                 ExtScalarOps,
-                _ZRowView(wit_vals, const_vals, inst * gate.principal_width, len(path)),
+                _ZRowView(wit_vals, const_vals, inst * gate.principal_width,
+                          lo.wit_col + inst * gate.witness_width, len(path)),
                 dst,
             )
             if len(dst.terms) != gate.num_terms:
@@ -169,23 +166,29 @@ def verify(vk, proof, gates) -> bool:
             )
         rel = ext_f.sub_s(ext_f.mul_s(lhs_seq[j], den_p), ext_f.mul_s(rhs_seq[j], num_p))
         total = ext_f.add_s(total, ext_f.mul_s(rel, next(alpha_pows)))
-    ab = 2 * len(chunks)  # first A_i row of stage 2
+    ab = lo.ab_row  # first A_i row of stage 2
     if lookups:
-        # A_i·den_i - 1 and B·den_t - M at z, then Σ_i A_i(0) = B(0)
+        # A_i·den_i - sel and B·den_t - M at z, then Σ_i A_i(0) = B(0);
+        # sel is 1 in specialized mode and the marker's selector in general
         gpow = ext_f.powers_s(lookup_gamma, wdt + 1)
-        tid_at_z = const_vals[K - 1]
+        tid_at_z = const_vals[lo.tid_const]
+        sel_at_z = ext_f.ONE_S
+        for b, bit in enumerate(lo.marker_path):
+            cb = const_vals[b]
+            sel_at_z = ext_f.mul_s(sel_at_z, cb if bit else ext_f.sub_s(ext_f.ONE_S, cb))
+        base = lo.lookup_col_base
         for i in range(R):
             a_i = ext_from_pair(s2_vals[ab + 2 * i], s2_vals[ab + 2 * i + 1])
             den = ext_f.add_s(lookup_beta, ext_f.mul_s(gpow[wdt], tid_at_z))
             for j in range(wdt):
-                den = ext_f.add_s(den, ext_f.mul_s(gpow[j], wit_vals[Cg + i * wdt + j]))
-            rel = ext_f.sub_s(ext_f.mul_s(a_i, den), ext_f.ONE_S)
+                den = ext_f.add_s(den, ext_f.mul_s(gpow[j], wit_vals[base + i * wdt + j]))
+            rel = ext_f.sub_s(ext_f.mul_s(a_i, den), sel_at_z)
             total = ext_f.add_s(total, ext_f.mul_s(rel, next(alpha_pows)))
         b_at_z = ext_from_pair(s2_vals[ab + 2 * R], s2_vals[ab + 2 * R + 1])
         den = lookup_beta
         for j in range(wdt + 1):
             den = ext_f.add_s(den, ext_f.mul_s(gpow[j], table_vals[j]))
-        rel = ext_f.sub_s(ext_f.mul_s(b_at_z, den), wit_vals[Ct])
+        rel = ext_f.sub_s(ext_f.mul_s(b_at_z, den), wit_vals[lo.mult_row])
         total = ext_f.add_s(total, ext_f.mul_s(rel, next(alpha_pows)))
         a_sum = ext_f.ZERO_S
         for i in range(R):
@@ -213,7 +216,7 @@ def verify(vk, proof, gates) -> bool:
             (q.witness, proof.witness_cap, Cw),
             (q.stage2, proof.stage2_cap, S),
             (q.quotient, proof.quotient_cap, 2 * Q),
-            (q.setup, vk.setup_merkle_cap, Ct + K + TW),
+            (q.setup, vk.setup_merkle_cap, Cs),
         ):
             if len(oq.leaf_values) != width:
                 return False

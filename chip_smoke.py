@@ -9,13 +9,17 @@ Phases, each printing its seconds:
   2. the build of every CUDA kernel (one nvcc per source, all at once);
   3. every kernel against its plain PyTorch version on the card, word for
      word (tolerance 0: every result is an exact field element), at the
-     shapes the fma 2^20 prove gives it and again at the shapes the sha256
-     2^16 prove gives it (LDE and quotient cosets at 8, the quotient sweep
-     with its lookup terms), each with its time, the plain version's time
-     and its bound;
+     shapes each 2^20 or 2^16 prove below gives it (fma; sha256 with LDE
+     and quotient cosets at 8 and the sweep's specialized lookup terms;
+     general-purpose-column lookups with the sweep's general lookup terms;
+     witness columns with the sweep's witness loads), and the sweep
+     through each of its standalone entries (cp_quotient, lookup_quotient,
+     lookup_quotient_general, gate_terms_fn), each with its time, the plain
+     version's time and its bound;
   4. small circuits set up and proved on the card and on the CPU: fma at
-     2^10, the xor4 lookup circuit at 2^9 and sha256(b"abc") at 2^14. The
-     two setup caps of each must be equal, the two proofs the same JSON
+     2^10, the xor4 lookup circuit at 2^9, sha256(b"abc") at 2^14, the
+     general-lookup circuit at 2^9 and the witness-column circuit at 2^5.
+     The two setup caps of each must be equal, the two proofs the same JSON
      text, and the port's verifier must accept;
   5. the bench fma-chain circuit (16 copy columns, 6 constant columns,
      degree 3; LDE 4, cap 16, 50 queries, no PoW, final degree 16)
@@ -30,9 +34,17 @@ Phases, each printing its seconds:
      8 constant columns, degree 7, width-4 x8 specialized lookups; LDE 8,
      cap 16, 50 queries, no PoW, final degree 16) at 2^16 rows, as phase 5
      with its own launch counts, and the circuit's digest against hashlib;
-  8. the same profile as phase 6 for the sha256 prove, on its own line.
+  8. the same profile as phase 6 for the sha256 prove, on its own line;
+  9. general-purpose-column lookups (the JAX package's
+     tests/test_lookup_general.py circuit: 8 copy, 0 witness, 6 constant
+     columns, degree 4, width-3 lookups on marker rows, xor4 and 4-bit
+     range tables) grown to 2^20 rows, with sha256's proof config, driven
+     as phase 5 with the public input checked against the host's value,
+     then profiled as phase 6;
+ 10. the same for the witness-column circuit (tests/test_witness_columns.py:
+     8 copy, 4 witness, 6 constant columns, degree 4) at 2^20 rows.
 
-Prints the two profile lines, the kernel table as one JSON line, the card
+Prints the four profile lines, the kernel table as one JSON line, the card
 line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, if any phase
 fails, if no CUDA device is available, or if the package is missing.
@@ -52,6 +64,8 @@ SHA_BYTES = 8192  # bench.py's sha256 message; pads to 2^16 rows
 FMA_PATH = f"fma 2^{LOG_N}"
 SHA_LOG_N = 16
 SHA_PATH = f"sha256 {SHA_BYTES} B, 2^{SHA_LOG_N}"
+GEN_PATH = f"general lookups 2^{LOG_N}"
+WIT_PATH = f"witness columns 2^{LOG_N}"
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published
 # 32-bit integer multiply-add and add issue per SM per clock on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -115,9 +129,11 @@ class FieldOpCounter:
         return self.muls * OPS_PER_MUL + self.adds * OPS_PER_ADD
 
 
-def timed(torch, fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps runs, by CUDA events."""
-    fn()
+def timed(torch, fn, reps: int, warm_up: bool = True) -> float:
+    """Mean milliseconds of fn() over reps runs, by CUDA events, after one
+    untimed run unless the caller has just run fn."""
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -222,41 +238,86 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
              w * (2 * N + N // 2 + N), f"{N} -> {N // 2}"),
         ]
 
+    def entry_cases():
+        """(entry, path, kernel call, plain call, bytes moved, shape) of each
+        standalone entry of the sweep at the shapes of the path whose part
+        it computes: the gate terms with witness loads, the copy
+        permutation and the general lookup terms at 2^20 rows, the
+        specialized lookup terms at the sha256 2^16 widths."""
+        wit_asm = next(asm for p, asm, _l, _c in paths if p == WIT_PATH)
+        _tree, wit_paths = build_selector_tree(wit_asm.gates)
+        gate_fn = qs.gate_terms_fn(wit_asm.gates, wit_paths, wit_asm.geometry, dev)
+        n, ns = 1 << LOG_N, 1 << SHA_LOG_N
+        pows = lambda k: [(3 + i, 5 + i) for i in range(k)]  # noqa: E731
+        lk = lambda r, wd: ((19, 23), (29, 31), pows(r + 1), r, wd)  # noqa: E731
+        cases = [
+            ("gate_terms_fn", WIT_PATH, gate_fn.launch,
+             (rand(8, n), rand(4, n), rand(6, n),
+              pows(qs.num_gate_terms(wit_asm.gates, wit_asm.geometry))),
+             f"2^{LOG_N} rows: 8 copy, 4 witness, 6 constant columns"),
+            ("cp_quotient", GEN_PATH, qs.cp_quotient_launch,
+             (rand(4, n), rand(2, n), rand(8, n), rand(8, n), rand(n), rand(n), (3, 5),
+              (7, 11), pows(3), list(range(1, 9)), 4),
+             f"2^{LOG_N} rows: 8 copy columns in 2 chunks"),
+            ("lookup_quotient_general", GEN_PATH, qs.lookup_quotient_general_launch,
+             (rand(6, n), rand(6, n), rand(n), rand(4, n), rand(n), rand(n), *lk(2, 3)),
+             f"2^{LOG_N} rows: 2 sub-arguments of width 3"),
+            ("lookup_quotient", SHA_PATH, qs.lookup_quotient_launch,
+             (rand(18, ns), rand(32, ns), rand(ns), rand(5, ns), rand(ns), *lk(8, 4)),
+             f"2^{SHA_LOG_N} rows: 8 sub-arguments of width 4"),
+        ]
+        out = []
+        for entry, path, launch, a, shape in cases:
+            plan, ops, table = launch(*a)
+            nbytes = w * (sum(t.numel() for t in ops.tensors() if t is not None)
+                          + table.numel() + 2 * ops.n)
+            out.append((entry, path,
+                        lambda b=(plan, ops, table): torch.stack(qs.sweep(*b)),
+                        lambda b=(plan, ops, table): torch.stack(qs.sweep_plain(*b)),
+                        nbytes, shape))
+        return out
+
+    cases = [(name, None, path, kern, plain, nbytes, shape)
+             for path, asm, log_n, cfg in paths
+             for name, kern, plain, nbytes, shape in path_cases(asm, log_n,
+                                                                 cfg.fri_lde_factor)]
+    cases += [("quotient_sweep", entry, path, kern, plain, nbytes, shape)
+              for entry, path, kern, plain, nbytes, shape in entry_cases()]
     rows = []
-    for path, asm, log_n, cfg in paths:
-        for name, kern, plain, nbytes, shape in path_cases(asm, log_n, cfg.fri_lde_factor):
-            t0 = time.perf_counter()
-            got = kern()
-            with FieldOpCounter(gf) as ops:
-                want = plain()
-            torch.cuda.synchronize()
-            err = max_abs_err(gf, got, want)
-            del got, want
-            ms = timed(torch, kern, 5)
-            plain_ms = timed(torch, plain, 1)
-            bound_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-            bound_ops = ops.int_ops / int_ops_per_s * 1e3
-            lib, replaces = K.KERNELS[name]
-            row = {
-                "name": name,
-                "route": "cuda",
-                "source": f"boojum_tpu_torch/csrc/{lib}.cu",
-                "replaces": replaces,
-                "path": path,
-                "shape": shape,
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(bound_bytes, bound_ops),
-                "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-                "library_ms": None,
-            }
-            rows.append(row)
-            log(f"  {name:15s} {shape:40s} err={err} kernel {ms:.3f} ms  plain "
-                f"{plain_ms:.1f} ms  bound {row['bound_ms']:.3f} ms "
-                f"({row['bound_by']})  [{time.perf_counter() - t0:.1f} s]")
-            if err:
-                raise AssertionError(f"kernel {name} ({path}) disagrees with its plain version")
+    for name, entry, path, kern, plain, nbytes, shape in cases:
+        t0 = time.perf_counter()
+        got = kern()
+        with FieldOpCounter(gf) as ops:
+            want = plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(gf, got, want)
+        del got, want
+        ms = timed(torch, kern, 5)
+        plain_ms = timed(torch, plain, 1, warm_up=False)  # warmed by the comparison
+        bound_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+        bound_ops = ops.int_ops / int_ops_per_s * 1e3
+        lib, replaces = K.KERNELS[name]
+        row = {
+            "name": name,
+            "entry": entry,
+            "route": "cuda",
+            "source": f"boojum_tpu_torch/csrc/{lib}.cu",
+            "replaces": K.SWEEP_ENTRIES[entry] if entry else replaces,
+            "path": path,
+            "shape": shape,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": None,
+        }
+        rows.append(row)
+        log(f"  {entry or name:23s} {shape:40s} err={err} kernel {ms:.3f} ms  plain "
+            f"{plain_ms:.1f} ms  bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']})  [{time.perf_counter() - t0:.1f} s]")
+        if err:
+            raise AssertionError(f"kernel {name} ({path}) disagrees with its plain version")
     return rows
 
 
@@ -285,9 +346,9 @@ def card_against_cpu(torch, label, asm, cfg) -> float:
 def drive_path(torch, label, synthesize, cfg, log_n, phase) -> dict:
     """One path through the entry points a user calls, with the launch
     counts set to 0 just before synthesis and read after verification.
-    synthesize() returns (assembly, a check of the circuit's output); the
-    assembly must have 2^log_n rows, the size phase 3 checked the kernels
-    at."""
+    synthesize() returns (assembly, a check of the circuit's output that
+    takes the proof); the assembly must have 2^log_n rows, the size phase 3
+    checked the kernels at."""
     from boojum_tpu_torch import kernels as K
     from boojum_tpu_torch.prover import generate_setup, prove, verify
 
@@ -320,7 +381,7 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase) -> dict:
         raise AssertionError(f"{label}: proof rejected by the verifier")
     if len(proof.queries) != cfg.num_queries or not proof.fri_caps:
         raise AssertionError(f"{label}: proof has the wrong shape")
-    check_output()
+    check_output(proof)
     verify_s = time.perf_counter() - t
     launches = dict(K.LAUNCHES)
     log(f"[{phase}] verified, output checked ({verify_s:.1f} s); launches on the "
@@ -393,8 +454,9 @@ def main() -> int:
         return 2
     from boojum_tpu_torch import kernels as K
     from boojum_tpu_torch.circuits import (
-        bench_message, build_fma, build_sha256, build_xor_lookup, fma_proof_config,
-        sha256_proof_config, xor_lookup_proof_config,
+        bench_message, build_fma, build_general_lookup, build_sha256, build_xor_lookup,
+        build_zero_check_witness, fma_proof_config, sha256_proof_config,
+        small_proof_config, xor_lookup_proof_config,
     )
     from boojum_tpu_torch.gadgets import sha256_digest_bytes
     from boojum_tpu_torch.prover import prove
@@ -417,11 +479,15 @@ def main() -> int:
     asm10 = build_fma(10).into_assembly()
     cs_abc, digest_abc = build_sha256(message=b"abc")
     asm_abc = cs_abc.into_assembly()
-    log(f"[3] kernels against their plain versions at the {FMA_PATH} and "
-        f"{SHA_PATH} proves' shapes")
+    asm_gen = build_general_lookup()[0].into_assembly()
+    asm_wit = build_zero_check_witness()[0].into_assembly()
+    log(f"[3] kernels against their plain versions at the {FMA_PATH}, {SHA_PATH}, "
+        f"{GEN_PATH} and {WIT_PATH} proves' shapes")
     rows = kernel_parity(torch, [
         (FMA_PATH, asm10, LOG_N, fma_proof_config()),
         (SHA_PATH, asm_abc, SHA_LOG_N, sha256_proof_config()),
+        (GEN_PATH, asm_gen, LOG_N, sha256_proof_config()),
+        (WIT_PATH, asm_wit, LOG_N, sha256_proof_config()),
     ], int_ops_per_s)
     log(f"[3] all {len(rows)} rows word-exact ({time.perf_counter() - t:.1f} s)")
 
@@ -432,13 +498,17 @@ def main() -> int:
             xor_lookup_proof_config()),
         "sha256 abc 2^14": card_against_cpu(
             torch, "sha256 abc 2^14", asm_abc, sha256_proof_config()),
+        "general lookups 2^9": card_against_cpu(
+            torch, "general lookups 2^9", asm_gen, small_proof_config()),
+        "witness columns 2^5": card_against_cpu(
+            torch, "witness columns 2^5", asm_wit, small_proof_config()),
     }
     if sha256_digest_bytes(cs_abc, digest_abc) != hashlib.sha256(b"abc").digest():
         raise AssertionError("sha256(b'abc') circuit digest is wrong")
 
     # each main path: every count goes to 0 before it and is read after verify
     def fma_circuit():
-        return build_fma(LOG_N).into_assembly(), lambda: None
+        return build_fma(LOG_N).into_assembly(), lambda _proof: None
 
     fma = drive_path(torch, FMA_PATH, fma_circuit, fma_proof_config(), LOG_N, 5)
     t = time.perf_counter()
@@ -455,7 +525,7 @@ def main() -> int:
     def sha_circuit():
         cs, digest = build_sha256(SHA_BYTES)
 
-        def check():
+        def check(_proof):
             if sha256_digest_bytes(cs, digest) != hashlib.sha256(message).digest():
                 raise AssertionError("sha256 circuit digest differs from hashlib's")
 
@@ -473,15 +543,44 @@ def main() -> int:
     log(f"[8] warm prove {prof_sha['prove_warm_s']:.3f} s, device busy "
         f"{prof_sha['device_busy_ms']:.1f} ms, idle share "
         f"{prof_sha['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
-    print(json.dumps({"profile": prof_fma}))
-    print(json.dumps({"profile": prof_sha}))
-
+    del sha["asm"], sha["setup"]
+    profiles = [prof_fma, prof_sha]
     paths = {FMA_PATH: fma["launches"], SHA_PATH: sha["launches"]}
+    # the slice: general-purpose-column lookups and witness columns at 2^20
+    for phase, label, build in ((9, GEN_PATH, build_general_lookup),
+                                (10, WIT_PATH, build_zero_check_witness)):
+
+        def circuit(build=build, label=label):
+            cs, out = build(LOG_N)
+            want = cs.get_value(out)
+
+            def check(proof):
+                if proof.public_inputs != [want]:
+                    raise AssertionError(f"{label}: public input {proof.public_inputs} "
+                                         f"differs from the host's {want}")
+
+            return cs.into_assembly(), check
+
+        run = drive_path(torch, label, circuit, sha256_proof_config(), LOG_N, phase)
+        t = time.perf_counter()
+        prof = profile_prove(torch, prove, run["asm"], run["setup"], sha256_proof_config())
+        prof.update(circuit=label, card=card, **{
+            k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s", "rounds_cold_s",
+                                "verify_s", "peak_device_memory_gib", "launches_on_prove")})
+        log(f"[{phase}] warm prove {prof['prove_warm_s']:.3f} s, device busy "
+            f"{prof['device_busy_ms']:.1f} ms, idle share "
+            f"{prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
+        del run["asm"], run["setup"]
+        profiles.append(prof)
+        paths[label] = run["launches"]
+    for prof in profiles:
+        print(json.dumps({"profile": prof}))
+
     for row in rows:
         row["launches"] = paths[row["path"]][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "path", "shape",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "entry", "path", "shape",
             "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,4 +1,4 @@
-"""The port's gates of the fma-chain and sha256 slices against boojum_tpu's: the same
+"""The port's gates against boojum_tpu's: the same
 captured op program (the table the quotient-sweep kernel replays), the same
 terms over host ints, and the captured program replayed over word tensors
 equal to the gate's own evaluation (tolerance 0: exact field elements)."""
@@ -21,14 +21,16 @@ from torch_port_util import BOUNDARY, rand_words, to_np, to_t
 JAX_GATES = {
     "fma": jsimple.FmaGate, "constant": jsimple.ConstantsAllocatorGate,
     "nop": jsimple.NopGate, "public_input": jsimple.PublicInputGate,
-    "reduction4": jsimple.ReductionGate,
+    "reduction4": jsimple.ReductionGate, "zero_check_wit": jsimple.ZeroCheckWitnessGate,
+    "lookup_marker": jsimple.LookupMarkerGate,
 }
 
 
 @pytest.mark.parametrize("name", sorted(JAX_GATES))
 def test_gate_shape_and_captured_program_match_jax(name):
     gate, jgate = GATES_BY_NAME[name].instance(), JAX_GATES[name].instance()
-    for attr in ("principal_width", "num_constants", "num_terms", "max_degree"):
+    for attr in ("principal_width", "witness_width", "num_constants", "num_terms",
+                 "max_degree"):
         assert getattr(gate, attr) == getattr(jgate, attr), attr
     got, want = capture_gate_program(gate), jcapture(jgate)
     fields = ("loads", "consts", "ops", "terms", "num_slots")
@@ -36,7 +38,7 @@ def test_gate_shape_and_captured_program_match_jax(name):
 
 
 def _cells(rng, n):
-    return {k: [int(v) for v in rand_words(rng, n)] for k in ("v", "c")}
+    return {k: [int(v) for v in rand_words(rng, n)] for k in ("v", "w", "c")}
 
 
 @pytest.mark.parametrize("name", sorted(JAX_GATES))
@@ -46,9 +48,10 @@ def test_gate_terms_over_host_ints_match_jax(name, seed):
     cells["v"][:3] = [int(b) for b in BOUNDARY[seed * 3 : seed * 3 + 3]]
     gate, jgate = GATES_BY_NAME[name].instance(), JAX_GATES[name].instance()
     got, want = TermsCollector(), jbase.TermsCollector()
-    gate.evaluate(tfl.ScalarOps, RowView(cells["v"].__getitem__, None,
+    gate.evaluate(tfl.ScalarOps, RowView(cells["v"].__getitem__, cells["w"].__getitem__,
                                          cells["c"].__getitem__), got)
-    jgate.evaluate(jfl.ScalarOps, jbase.RowView(cells["v"].__getitem__, None,
+    jgate.evaluate(jfl.ScalarOps, jbase.RowView(cells["v"].__getitem__,
+                                                cells["w"].__getitem__,
                                                 cells["c"].__getitem__), want)
     assert [int(t) for t in got.terms] == [int(t) for t in want.terms]
 
@@ -56,8 +59,8 @@ def test_gate_terms_over_host_ints_match_jax(name, seed):
 @pytest.mark.parametrize("name", sorted(JAX_GATES))
 def test_captured_program_replays_gate_over_tensors(name):
     rng = np.random.default_rng(7)
-    v, c = rand_words(rng, 8, 64), rand_words(rng, 8, 64)
-    row = RowView(lambda i: to_t(v[i]), None, lambda i: to_t(c[i]))
+    v, w, c = rand_words(rng, 8, 64), rand_words(rng, 8, 64), rand_words(rng, 8, 64)
+    row = RowView(lambda i: to_t(v[i]), lambda i: to_t(w[i]), lambda i: to_t(c[i]))
     gate = GATES_BY_NAME[name].instance()
     direct = TermsCollector()
     gate.evaluate(tfl.TensorOps, row, direct)
@@ -68,7 +71,7 @@ def test_captured_program_replays_gate_over_tensors(name):
 
 
 class _WitnessGate(Gate):
-    """A gate whose term reads a witness column (not ported)."""
+    """A gate reading one witness column past its own."""
 
     name = "uses_witness"
     principal_width = 1
@@ -77,7 +80,7 @@ class _WitnessGate(Gate):
     max_degree = 1
 
     def evaluate(self, ops, row, dst):
-        dst.push(ops.sub(row.v(0), row.w(0)))
+        dst.push(ops.sub(row.v(0), row.w(1)))
 
 
 class _WideConstGate(Gate):
@@ -94,7 +97,7 @@ class _WideConstGate(Gate):
 
 
 @pytest.mark.parametrize("gate,error", [
-    (_WitnessGate, NotImplementedError), (_WideConstGate, ValueError),
+    (_WitnessGate, ValueError), (_WideConstGate, ValueError),
 ])
 def test_sweep_plan_rejects_loads_outside_the_ported_columns(gate, error):
     """The encoder refuses what the kernel could only read out of bounds, so

@@ -1,14 +1,18 @@
 """Each CUDA kernel of boojum_tpu_torch against its plain PyTorch version on
-the card, word for word (tolerance 0), and the fma 2^10 and xor4 lookup 2^9
-proofs identical on the card and the CPU. Marked `cuda`: they skip where no card is present and run on the
-card with `python -m pytest tests/test_torch_kernels.py`."""
+the card, word for word (tolerance 0), the quotient sweep in every layout
+and through its standalone entries, and the fma 2^10, xor4 lookup 2^9,
+general-lookup 2^9 and witness-column 2^5 proofs identical on the card and
+the CPU. Marked `cuda`: they skip where no card is present and run on the
+card with `python -m pytest tests/port/test_torch_kernels.py`."""
 
 import numpy as np
 import pytest
 import torch
 
 from boojum_tpu_torch.circuits import (
-    build_fma, build_sha256, build_xor_lookup, fma_proof_config, xor_lookup_proof_config,
+    build_fma, build_general_lookup, build_sha256, build_xor_lookup,
+    build_zero_check_witness, fma_proof_config, small_proof_config,
+    xor_lookup_proof_config,
 )
 from boojum_tpu_torch.field import goldilocks as gf
 from boojum_tpu_torch.hashes import poseidon2 as p2
@@ -95,6 +99,56 @@ def test_lookup_sweep_kernel_matches_plain(dev, circuit):
         _same(g, w)
 
 
+@pytest.mark.parametrize("circuit", ["general", "witness"])
+def test_sweep_kernel_matches_plain_in_the_new_layouts(dev, circuit):
+    """The sweep with general-mode lookup terms (width 3, 2 sub-arguments on
+    marker rows) and with witness-column loads (4 witness columns)."""
+    cs = build_general_lookup()[0] if circuit == "general" else build_zero_check_witness()[0]
+    asm = cs.into_assembly()
+    _tree, paths = build_selector_tree(asm.gates)
+    Ct = asm.num_copy_cols_total
+    lp = asm.lookup_params if asm.lookups_enabled else None
+    plan = qs.SweepPlan(asm.gates, paths, asm.geometry, Ct, dev, lp)
+    rng = np.random.default_rng(3)
+    n = 1 << 11
+    args = [_rand(rng, r, n, device=dev)
+            for r in (plan.num_wit_rows, plan.num_setup_cols, plan.num_s2_rows, 2)]
+    args += [_rand(rng, n, device=dev) for _ in range(3)]
+    table = qs.sweep_table(plan, (3, 5), (7, 11), (13, 17), list(range(1, Ct + 1)), dev,
+                           (19, 23), (29, 31))
+    for g, w in zip(qs.coset_terms(plan, *args, table),
+                    qs.coset_terms_plain(plan, *args, table)):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("entry", ["gate_terms_fn", "cp_quotient", "lookup_quotient",
+                                   "lookup_quotient_general"])
+def test_sweep_entry_kernel_matches_plain(dev, entry):
+    rng = np.random.default_rng(4)
+    n = 1 << 11
+    r = lambda *shape: _rand(rng, *shape, device=dev)  # noqa: E731
+    pows = lambda k: [(3 + i, 5 + i) for i in range(k)]  # noqa: E731
+    if entry == "gate_terms_fn":
+        asm = build_zero_check_witness()[0].into_assembly()
+        _tree, paths = build_selector_tree(asm.gates)
+        launch = qs.gate_terms_fn(asm.gates, paths, asm.geometry, dev).launch
+        args = (r(8, n), r(4, n), r(6, n), pows(qs.num_gate_terms(asm.gates, asm.geometry)))
+    elif entry == "cp_quotient":
+        launch = qs.cp_quotient_launch
+        args = (r(4, n), r(2, n), r(8, n), r(8, n), r(n), r(n), (3, 5), (7, 11), pows(3),
+                list(range(1, 9)), 4)
+    elif entry == "lookup_quotient":
+        launch = qs.lookup_quotient_launch
+        args = (r(18, n), r(32, n), r(n), r(5, n), r(n), (19, 23), (29, 31), pows(9), 8, 4)
+    else:
+        launch = qs.lookup_quotient_general_launch
+        args = (r(6, n), r(6, n), r(n), r(4, n), r(n), r(n), (19, 23), (29, 31), pows(3),
+                2, 3)
+    built = launch(*args)
+    for g, w in zip(qs.sweep(*built), qs.sweep_plain(*built)):
+        _same(g, w)
+
+
 def test_sweep_rejects_a_short_setup_stack_on_the_card(dev):
     asm = build_fma(8).into_assembly()
     _tree, paths = build_selector_tree(asm.gates)
@@ -108,12 +162,16 @@ def test_sweep_rejects_a_short_setup_stack_on_the_card(dev):
         qs.coset_terms(plan, *args, table)
 
 
-@pytest.mark.parametrize("circuit", ["fma", "xor4"])
+@pytest.mark.parametrize("circuit", ["fma", "xor4", "general", "witness"])
 def test_proof_identical_on_card_and_cpu(dev, circuit):
     if circuit == "fma":
         asm, cfg = build_fma(10).into_assembly(), fma_proof_config()
-    else:
+    elif circuit == "xor4":
         asm, cfg = build_xor_lookup()[0].into_assembly(), xor_lookup_proof_config()
+    elif circuit == "general":
+        asm, cfg = build_general_lookup()[0].into_assembly(), small_proof_config()
+    else:
+        asm, cfg = build_zero_check_witness()[0].into_assembly(), small_proof_config()
     s_gpu = generate_setup(asm, cfg, device=dev)
     p_gpu = prove(asm, s_gpu, cfg, device=dev)
     p_cpu = prove(asm, generate_setup(asm, cfg, device="cpu"), cfg, device="cpu")
