@@ -1,24 +1,31 @@
-// Width-12 Goldilocks Poseidon2 sponge: Merkle leaf hashes and 2-to-1 node
-// hashes.
+// Width-12 Goldilocks Poseidon2: Merkle leaf hashes and 2-to-1 node hashes
+// (B5), and the bare permutation with the streamed commit's absorb (B4).
 //
-// Replaces the Pallas kernel boojum_tpu/hashes/pallas_poseidon2.py
+// B5 replaces the Pallas kernel boojum_tpu/hashes/pallas_poseidon2.py
 // _sponge_kernel (via _sponge_planes): an overwrite-mode sponge, rate 8,
-// capacity 4, the last chunk zero-padded, a 4-word digest. The TPU kernel
-// works on (lo, hi) u32 planes laid out (L, R, 128) because the TPU vector
-// unit has no 64-bit multiply; here one thread holds one leaf's 12-word state
-// in registers and multiplies 64-bit words directly.
+// capacity 4, the last chunk zero-padded, a 4-word digest. B4 replaces
+// _perm_kernel (via _permute_planes): the permutation of a batch of (N, 12)
+// states, which the JAX package's streamed commit drives through
+// prover/streaming.py _sponge_absorb8 (overwrite the rate with 8 leaf columns,
+// permute). The TPU kernels work on (lo, hi) u32 planes laid out (L, R, 128)
+// because the TPU vector unit has no 64-bit multiply; here one thread holds
+// one state's 12 words in registers and multiplies 64-bit words directly.
 //
 // What bounds it on the H100: integer operations. A permutation is 736 field
 // multiplies (4 for each of the 8*12 + 22 S-boxes, 12 for each of the 22
 // internal layers) and several hundred adds; a leaf of 16 words reads 128
-// bytes for two permutations, so the multiply rate, not memory, is the
-// limit. The design keeps the whole state in registers, reads a column-major
-// (B, N) stack so that neighbouring threads read neighbouring words, and keeps
-// the round constants and the internal diagonal in __constant__ memory,
-// where every thread of a warp reads the same word at once.
+// bytes for two permutations, and a bare permutation reads and writes 192,
+// so the multiply rate, not memory, is the limit. The design keeps the whole
+// state in registers, reads a column-major (B, N) stack so that neighbouring
+// threads read neighbouring words, and keeps the round constants and the
+// internal diagonal in __constant__ memory, where every thread of a warp
+// reads the same word at once.
 //
-// The permutation is a device function of its own, so the bare permutation
-// kernel (pallas_poseidon2.py _perm_kernel) is a small later addition.
+// The absorb fuses what the JAX package runs as one permutation launch per 8
+// columns: one launch takes a whole (b, N) column block, loads the carried
+// state once, absorbs the block's chunks in order with the state
+// in registers and stores the state once, so the carried (N, 12) state
+// crosses device memory once a block, not once a chunk.
 #include "goldilocks.cuh"
 
 namespace {
@@ -121,6 +128,41 @@ __global__ void node_hash(const uint64_t* __restrict__ in, size_t M,
   for (int k = 0; k < 4; ++k) out[i * 4 + k] = s[k];
 }
 
+// One thread per state: permute in[r] into out[r] ((N, 12) row-major, two
+// separate buffers).
+__global__ void permute_batch(const uint64_t* __restrict__ in, size_t N,
+                              uint64_t* __restrict__ out) {
+  const size_t r = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  uint64_t s[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s[i] = in[r * 12 + i];
+  permute(s);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) out[r * 12 + i] = s[i];
+}
+
+// One thread per carried state (N, 12), updated in place: for each chunk of 8
+// columns of the (b, N) column-major block, overwrite the rate (words 0..7)
+// with the chunk, zero past column b, and permute.
+__global__ void absorb_block(uint64_t* __restrict__ state,
+                             const uint64_t* __restrict__ cols, int b,
+                             size_t N) {
+  const size_t r = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  uint64_t s[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s[i] = state[r * 12 + i];
+  for (int c0 = 0; c0 < b; c0 += 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      s[j] = (c0 + j < b) ? cols[size_t(c0 + j) * N + r] : 0;
+    permute(s);
+  }
+#pragma unroll
+  for (int i = 0; i < 12; ++i) state[r * 12 + i] = s[i];
+}
+
 constexpr int kThreads = 128;
 
 }  // namespace
@@ -147,5 +189,21 @@ extern "C" cudaError_t bt_poseidon2_node_hash(const uint64_t* in, long long M,
                                               cudaStream_t stream) {
   const unsigned blocks = unsigned((size_t(M) + kThreads - 1) / kThreads);
   node_hash<<<blocks, kThreads, 0, stream>>>(in, size_t(M), out);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t bt_poseidon2_permute(const uint64_t* in, long long N,
+                                            uint64_t* out,
+                                            cudaStream_t stream) {
+  const unsigned blocks = unsigned((size_t(N) + kThreads - 1) / kThreads);
+  permute_batch<<<blocks, kThreads, 0, stream>>>(in, size_t(N), out);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t bt_poseidon2_absorb(uint64_t* state,
+                                           const uint64_t* cols, int b,
+                                           long long N, cudaStream_t stream) {
+  const unsigned blocks = unsigned((size_t(N) + kThreads - 1) / kThreads);
+  absorb_block<<<blocks, kThreads, 0, stream>>>(state, cols, b, size_t(N));
   return cudaGetLastError();
 }

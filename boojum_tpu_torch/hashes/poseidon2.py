@@ -8,9 +8,12 @@ node forms carry the Merkle trees, and the host mirror carries the transcript
 and path verification.
 
 `leaf_hash` and `node_hash` are the wrappers of kernel B5 (csrc/poseidon2.cu,
-replacing boojum_tpu/hashes/pallas_poseidon2.py _sponge_kernel): a CUDA
-tensor launches the kernel, a CPU tensor runs the plain PyTorch version
-below, which is the kernel's reference and used nowhere on the card.
+replacing boojum_tpu/hashes/pallas_poseidon2.py _sponge_kernel);
+`poseidon2_permutation` and `absorb_cols` those of kernel B4 (the same
+source, replacing _perm_kernel): the bare permutation of (N, 12) states, and
+the streamed commit's absorb of a column block into carried sponge states.
+A CUDA tensor launches the kernel, a CPU tensor runs the plain PyTorch
+version below, which is the kernel's reference and used nowhere on the card.
 """
 
 from __future__ import annotations
@@ -78,6 +81,25 @@ def permute_plain(state: list) -> list:
     return s
 
 
+def permutation_plain(state: torch.Tensor) -> torch.Tensor:
+    """Poseidon2 of each row of an (N, 12) state stack."""
+    return torch.stack(permute_plain([state[:, i] for i in range(12)]), dim=1)
+
+
+def absorb_cols_plain(state: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Absorb a (b, N) column block into the carried (N, 12) states, in
+    place: each chunk of 8 columns overwrites the rate (zero past column b)
+    and is permuted (the JAX package's streaming.py _absorb_cols)."""
+    b, N = cols.shape
+    zero = torch.zeros(N, dtype=torch.int64, device=cols.device)
+    s = [state[:, i] for i in range(12)]
+    for c0 in range(0, b, 8):
+        s[:8] = [cols[c0 + j] if c0 + j < b else zero for j in range(8)]
+        s = permute_plain(s)
+    state.copy_(torch.stack(s, dim=1))
+    return state
+
+
 def leaf_hash_plain(cols: torch.Tensor) -> torch.Tensor:
     """(B, N) column-major leaf stack -> (N, 4) digests."""
     B, N = cols.shape
@@ -98,7 +120,7 @@ def node_hash_plain(children: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrappers (B5)
+# Kernel wrappers (B5, B4)
 # ---------------------------------------------------------------------------
 
 _constants_set: set = set()
@@ -162,6 +184,55 @@ def node_hash(children: torch.Tensor) -> torch.Tensor:
             "poseidon2 node hash",
         )
     return out
+
+
+def _require_states(state: torch.Tensor, what: str) -> None:
+    K.require(state, what)
+    if state.dim() != 2 or state.shape[1] != 12:
+        raise ValueError(f"{what}: expected (N, 12) states, got {tuple(state.shape)}")
+
+
+def poseidon2_permutation(state: torch.Tensor) -> torch.Tensor:
+    """Poseidon2 of each row of an (N, 12) state stack; returns a new
+    (N, 12) tensor (the JAX package's hashes/poseidon2.py
+    poseidon2_permutation)."""
+    _require_states(state, "poseidon2_permutation state")
+    dev = K.same_device(state)
+    if dev.type == "cpu":
+        return permutation_plain(state)
+    out = torch.empty_like(state)
+    lib = _library(dev)
+    with torch.cuda.device(dev):
+        K.count("poseidon2_permute")
+        K.check(
+            lib.bt_poseidon2_permute(K.ptr(state), state.shape[0], K.ptr(out),
+                                     K.stream(dev)),
+            "poseidon2 permutation",
+        )
+    return out
+
+
+def absorb_cols(state: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Absorb a (b, N) column-major block, b >= 1, into the carried (N, 12)
+    sponge states in place, 8 columns a permutation, the last chunk
+    zero-padded; returns `state`. One launch takes the whole block."""
+    _require_states(state, "absorb_cols state")
+    K.require(cols, "absorb_cols cols")
+    if cols.dim() != 2 or cols.shape[0] < 1 or cols.shape[1] != state.shape[0]:
+        raise ValueError(f"absorb_cols: a (b, {state.shape[0]}) block, got "
+                         f"{tuple(cols.shape)}")
+    dev = K.same_device(state, cols)
+    if dev.type == "cpu":
+        return absorb_cols_plain(state, cols)
+    b, N = cols.shape
+    lib = _library(dev)
+    with torch.cuda.device(dev):
+        K.count("poseidon2_absorb")
+        K.check(
+            lib.bt_poseidon2_absorb(K.ptr(state), K.ptr(cols), b, N, K.stream(dev)),
+            "poseidon2 absorb",
+        )
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -32,14 +32,20 @@ NVCC_FLAGS = (
 
 # kernel -> (library, TPU kernel it replaces)
 KERNELS = {
-    "ntt_forward": ("ntt", "boojum_tpu/ntt/mxu_ntt.py:444 _fwd_kernel"),
-    "ntt_inverse": ("ntt", "boojum_tpu/ntt/mxu_ntt.py:472 _inv_kernel"),
-    "ntt_lde": ("ntt", "boojum_tpu/ntt/mxu_ntt.py:500 _fwd_scaled_kernel"),
+    "ntt_forward": ("ntt", "boojum_tpu/ntt/mxu_ntt.py:359 _fwd_kernel"),
+    "ntt_inverse": ("ntt", "boojum_tpu/ntt/mxu_ntt.py:378 _inv_kernel"),
+    "ntt_lde": ("ntt", "boojum_tpu/ntt/mxu_ntt.py:371 _fwd_scaled_kernel"),
     "poseidon2_leaf": (
-        "poseidon2", "boojum_tpu/hashes/pallas_poseidon2.py:232 _sponge_kernel"
+        "poseidon2", "boojum_tpu/hashes/pallas_poseidon2.py:157 _sponge_kernel"
     ),
     "poseidon2_node": (
-        "poseidon2", "boojum_tpu/hashes/pallas_poseidon2.py:232 _sponge_kernel"
+        "poseidon2", "boojum_tpu/hashes/pallas_poseidon2.py:157 _sponge_kernel"
+    ),
+    "poseidon2_permute": (
+        "poseidon2", "boojum_tpu/hashes/pallas_poseidon2.py:151 _perm_kernel"
+    ),
+    "poseidon2_absorb": (
+        "poseidon2", "boojum_tpu/hashes/pallas_poseidon2.py:151 _perm_kernel"
     ),
     "quotient_sweep": (
         "quotient_sweep",
@@ -74,6 +80,8 @@ _SIGNATURES = {
         "bt_poseidon2_set_constants": (_P, _P),
         "bt_poseidon2_leaf_hash": (_P, _I, _LL, _P, _P),
         "bt_poseidon2_node_hash": (_P, _LL, _P, _P),
+        "bt_poseidon2_permute": (_P, _LL, _P, _P),
+        "bt_poseidon2_absorb": (_P, _P, _I, _LL, _P),
     },
     "quotient_sweep": {
         # 11 operand blocks, table, program, constants; Ct, chunk degree,

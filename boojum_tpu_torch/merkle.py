@@ -53,6 +53,12 @@ class MerkleTreeWithCap:
     def from_columns(cls, cols: torch.Tensor, cap_size: int):
         return cls(commit_layers_device(cols, cap_size), cap_size)
 
+    @classmethod
+    def from_digests(cls, digests: torch.Tensor, cap_size: int):
+        """A tree over (N, 4) leaf digests hashed elsewhere (the streamed
+        commit), so the leaf columns never exist at once."""
+        return cls(node_layers_device(digests, cap_size), cap_size)
+
     def get_cap(self):
         return list(self._cap_host)
 

@@ -151,6 +151,16 @@ class OracleLayout:
         """A_i and B are opened at 0."""
         return self.R + 1 if self.lookups else 0
 
+    def streamed_columns_estimate(self, quotient_degree: int, lde_factor: int) -> int:
+        """The column count the prover's stream decision weighs: the JAX
+        package's estimate (its prover.py _prove_impl), with stage 2 as
+        2·chunks + 2·R + 2·M and the quotient as 2·(quotient_degree, or
+        the LDE factor where that is 0), so both packages decide alike."""
+        M = 1 if self.lookups else 0
+        s2_est = 2 * self.num_chunks + 2 * self.R + 2 * M
+        q_est = quotient_degree or lde_factor
+        return (self.Ct + self.W + M) + self.num_setup_rows + s2_est + 2 * q_est
+
     def num_columns(self, quotient_degree: int) -> int:
         """Columns over the four oracles: the values opened at z."""
         return (self.num_wit_rows + self.num_setup_rows + self.num_s2_rows

@@ -1,6 +1,6 @@
 """The 5-round IOP prover on one device (the JAX package's prover.py
-_prove_impl, meshless and materialized, with witness columns and lookups
-in specialized or general-purpose columns).
+_prove_impl, meshless, with witness columns and lookups in specialized or
+general-purpose columns, materialized or streamed).
 
 Rounds (the transcript order is the protocol; the verifier replays it):
   0. absorb the setup cap and the public inputs
@@ -20,6 +20,12 @@ column pair; quotient [q_0 c0, q_0 c1, ...], as prover/layout.py lays them
 out. Every polynomial op runs on the device: the kernels carry the NTTs,
 LDEs, Merkle hashing, quotient sweep and FRI folds, plain PyTorch the rest;
 the host runs the transcript and assembles queries.
+
+Past the stream threshold (prover/streaming.py, the JAX package's rule on
+its own column estimate) the witness, stage-2 and quotient commits stream:
+the prover keeps their monomials and no LDE, and round 5 regenerates the
+columns it reads (DEEP blocks, single columns, query openings). The setup
+oracle follows how the setup was committed.
 
 Each transcript step reports (round, label, values) to `log` with the same
 labels as the JAX package's prover, so the two checkpoint streams compare
@@ -58,6 +64,15 @@ from .proof import OracleQuery, Proof, SingleRoundQueries
 from .layout import OracleLayout
 from .quotient_sweep import SweepPlan, coset_terms, selector_from_consts, sweep_table
 from .stages import compute_lookup_polys, compute_lookup_polys_general, stage2_columns
+from .streaming import (
+    STREAM_THRESHOLD_BYTES,
+    MonomialSource,
+    commit_streaming,
+    deep_source_blocks,
+    use_streamed_lde,
+)
+
+DEEP_BLOCK_BYTES = 128 << 20  # bytes of materialized columns per DEEP block
 
 
 @lru_cache(maxsize=4)
@@ -98,10 +113,26 @@ def _inv_xs(log_n: int, lde_factor: int, device: str):
                   gl.inv(gl.MULTIPLICATIVE_GENERATOR))[bitreverse_indices(log_full, device)]
 
 
-def _commit(values_or_mono, L, cap, from_values=True):
+def _commit(values_or_mono, L, cap, stream, from_values=True):
+    """(monomials, the (B, L·n) LDE or, streamed, a MonomialSource, tree)."""
     mono = monomial_from_values(values_or_mono) if from_values else values_or_mono
+    if stream:
+        return mono, MonomialSource(mono, L), commit_streaming(mono, L, cap)
     lde = lde_from_monomial(mono, L)
-    return mono, lde, MerkleTreeWithCap(commit_layers_device(lde, cap), cap)
+    tree = MerkleTreeWithCap(commit_layers_device(lde, cap), cap)
+    return mono, lde.reshape(lde.shape[0], -1), tree
+
+
+def _columns(src, idxs):
+    """Rows idxs of an oracle's (B, N) LDE, regenerated if it streams."""
+    if isinstance(src, MonomialSource):
+        return src.columns(idxs)
+    return src[torch.as_tensor(list(idxs), dtype=torch.int64, device=src.device)]
+
+
+def _leaf_values(src, idx):
+    """(B, len(idx)) leaf values of an oracle at the LDE points idx."""
+    return src.gather_rows(idx) if isinstance(src, MonomialSource) else src[:, idx]
 
 
 class _Clock:
@@ -128,10 +159,12 @@ class _Clock:
 
 
 def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
-          timings=None) -> Proof:
+          timings=None, stream_threshold_bytes=STREAM_THRESHOLD_BYTES) -> Proof:
     """Prove `assembly` against `setup` on `device`. `log`, if given, gets
     the checkpoint stream (utils/report.CheckpointLog); `timings`, if given,
-    a dict, gets each round's wall seconds."""
+    a dict, gets each round's wall seconds. The commits stream when the
+    JAX package's estimate of the oracles' LDE storage passes
+    `stream_threshold_bytes` (0 always, math.inf never)."""
     device = resolve_device(device)
     checkpoint = log.add if log is not None else (lambda *_a: None)
     clock = _Clock(timings, device)
@@ -148,6 +181,8 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     R = layout.R
     Q = setup.vk.quotient_degree
     omega = gl.omega(log_n)
+    stream = use_streamed_lde(layout.streamed_columns_estimate(Q, L), N,
+                              stream_threshold_bytes)
 
     t = Poseidon2Transcript()
     t.witness_merkle_tree_cap(setup.vk.setup_merkle_cap)
@@ -166,7 +201,7 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     if lookups:
         host_cols.append(assembly.multiplicities[None, :])
     wit_vals = gf.from_numpy(np.concatenate(host_cols, axis=0), device)
-    wit_mono, wit_lde, wit_tree = _commit(wit_vals, L, cap)
+    wit_mono, wit_src, wit_tree = _commit(wit_vals, L, cap, stream)
     t.witness_merkle_tree_cap(wit_tree.get_cap())
     checkpoint(1, "witness_cap", wit_tree.get_cap())
     beta = t.get_ext_challenge()
@@ -204,7 +239,7 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
         )
         del a_polys, b_poly
     del wit_vals
-    s2_mono, s2_lde, s2_tree = _commit(s2_vals, L, cap)
+    s2_mono, s2_src, s2_tree = _commit(s2_vals, L, cap, stream)
     del s2_vals
     t.witness_merkle_tree_cap(s2_tree.get_cap())
     checkpoint(2, "stage2_cap", s2_tree.get_cap())
@@ -244,7 +279,7 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
         [T_mono[comp][i * n : (i + 1) * n] for i in range(Q) for comp in (0, 1)]
     )
     del T_mono
-    _, q_lde, q_tree = _commit(q_mono, L, cap, from_values=False)
+    _, q_src, q_tree = _commit(q_mono, L, cap, stream, from_values=False)
     t.witness_merkle_tree_cap(q_tree.get_cap())
     checkpoint(3, "quotient_cap", q_tree.get_cap())
     z_chal = t.get_ext_challenge()
@@ -275,14 +310,19 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
 
     # ---- round 5: DEEP + FRI ---------------------------------------------
     clock.start("round5_deep_fri")
-    wit_flat = wit_lde.reshape(-1, N)
-    setup_flat = setup.setup_lde.reshape(-1, N)
-    s2_flat = s2_lde.reshape(-1, N)
-    q_flat = q_lde.reshape(2 * Q, N)
+    # a streamed setup streams here too, whatever this prove's threshold
+    setup_src = (MonomialSource(setup.setup_monomials, L) if setup.setup_lde is None
+                 else setup.setup_lde.reshape(-1, N))
+    # z at z·omega, A_i and B at 0, and the public-input columns
+    s2_cols = _columns(s2_src, [0, 1, *range(ab, ab + 2 * len(values_at_0))])
+    pi_cols = (_columns(wit_src, [c for (c, _r, _v) in assembly.public_inputs])
+               if assembly.public_inputs else None)
     h = _deep_codeword(
-        [wit_flat, setup_flat, s2_flat, q_flat], assembly, log_n, L, device,
-        values_at_z, values_at_z_omega, values_at_0, ab, z_chal, zw, deep_ch, omega, B,
+        [wit_src, setup_src, s2_src, q_src], s2_cols, pi_cols, assembly, log_n, L,
+        device, values_at_z, values_at_z_omega, values_at_0, z_chal, zw, deep_ch,
+        omega, B,
     )
+    del s2_cols, pi_cols
     fri = fri_prove(h, t, config, n, checkpoint)
     del h
     pow_nonce = pow_grind(t, config.pow_bits)
@@ -295,18 +335,18 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     checkpoint(5, "query_indices", idxs)
     idx_dev = torch.tensor(idxs, dtype=torch.int64, device=device)
 
-    def oracle_queries(flat, tree):
-        vals = gf.to_numpy(flat[:, idx_dev])
+    def oracle_queries(src, tree):
+        vals = gf.to_numpy(_leaf_values(src, idx_dev))
         paths = tree.get_proofs(idxs)
         return [
             OracleQuery(leaf_values=[int(x) for x in vals[:, q]], path=paths[q])
             for q in range(len(idxs))
         ]
 
-    wit_qs = oracle_queries(wit_flat, wit_tree)
-    s2_qs = oracle_queries(s2_flat, s2_tree)
-    q_qs = oracle_queries(q_flat, q_tree)
-    setup_qs = oracle_queries(setup_flat, setup.setup_tree)
+    wit_qs = oracle_queries(wit_src, wit_tree)
+    s2_qs = oracle_queries(s2_src, s2_tree)
+    q_qs = oracle_queries(q_src, q_tree)
+    setup_qs = oracle_queries(setup_src, setup.setup_tree)
     fri_qs = []
     fidxs = np.array(idxs, dtype=np.int64)
     for r, tree in enumerate(fri.trees):
@@ -360,13 +400,16 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     )
 
 
-def _deep_codeword(sources, assembly, log_n, L, device, values_at_z,
-                   values_at_z_omega, values_at_0, ab, z, zw, deep_ch, omega, B):
+def _deep_codeword(sources, s2_cols, pi_cols, assembly, log_n, L, device, values_at_z,
+                   values_at_z_omega, values_at_0, z, zw, deep_ch, omega, B):
     """h(x) = Σ_i ch^i (f_i(x) - f_i(z)) / (x - z)
             + Σ_{i<2} ch^(B+i) (z_i(x) - z_i(zw)) / (x - zw)
-            + Σ_i ch^(B+2+i) (f_i(x) - f_i(0)) / x  (A_i and B, from row ab)
+            + Σ_i ch^(B+2+i) (f_i(x) - f_i(0)) / x  (A_i and B)
             + Σ_k ch^(B+2+lk+k) (w_col(x) - pi_k) / (x - w^row_k),
-    over the full LDE domain (bit-reversed), as an ext pair."""
+    over the full LDE domain (bit-reversed), as an ext pair. `sources` are
+    the four oracles in order, each a (B_k, N) tensor or a MonomialSource;
+    s2_cols holds z's two columns, then A_i's and B's, pi_cols the
+    public-input columns."""
     xs, _l0, _zh = _domain_tables(log_n, L, str(device))
     num_pi = len(assembly.public_inputs)
     num_lk = len(values_at_0)
@@ -381,37 +424,33 @@ def _deep_codeword(sources, assembly, log_n, L, device, values_at_z,
     inv_xz, inv_xzw = (inv0[0], inv1[0]), (inv0[1], inv1[1])
 
     t0 = t1 = None
-    i = 0
-    for src in sources:
-        for col in src:
-            c0, c1 = pows[i]
+    for blk, off in deep_source_blocks(sources, DEEP_BLOCK_BYTES):
+        for j, col in enumerate(blk):
+            c0, c1 = pows[off + j]
             a0, a1 = gf.mul(col, c0), gf.mul(col, c1)
             t0 = a0 if t0 is None else gf.add(t0, a0)
             t1 = a1 if t1 is None else gf.add(t1, a1)
-            i += 1
     # subtract Σ ch^i·y_i, a host scalar
     ysum = ext_f.ZERO_S
     for j in range(B):
         ysum = ext_f.add_s(ysum, ext_f.mul_s(pows[j], values_at_z[j]))
     h = ext_f.mul((gf.sub(t0, ysum[0]), gf.sub(t1, ysum[1])), inv_xz)
 
-    s2_flat = sources[2]
     for j in range(2):
         y = values_at_z_omega[j]
-        num = (gf.sub(s2_flat[j], y[0]), torch.full_like(xs, gf.as_i64(gl.neg(y[1]))))
+        num = (gf.sub(s2_cols[j], y[0]), torch.full_like(xs, gf.as_i64(gl.neg(y[1]))))
         h = ext_f.add(h, ext_f.mul(ext_f.mul(num, inv_xzw), pows[B + j]))
     if num_lk:
         inv_x = _inv_xs(log_n, L, str(device))
         for i, (y0, y1) in enumerate(values_at_0):
-            num = (gf.sub(s2_flat[ab + 2 * i], y0), gf.sub(s2_flat[ab + 2 * i + 1], y1))
+            num = (gf.sub(s2_cols[2 + 2 * i], y0), gf.sub(s2_cols[3 + 2 * i], y1))
             h = ext_f.add(h, ext_f.mul(ext_f.mul_by_base(num, inv_x), pows[B + 2 + i]))
     if num_pi:
-        wit_flat = sources[0]
         pts = np.array([gl.pow_(omega, r) for (_c, r, _v) in assembly.public_inputs],
                        dtype=np.uint64)
         denoms = gf.batch_inverse(gf.sub(xs[None, :], gf.from_numpy(pts, device)[:, None]))
-        for k, (col, _row, value) in enumerate(assembly.public_inputs):
+        for k, (_col, _row, value) in enumerate(assembly.public_inputs):
             ch = pows[B + 2 + num_lk + k]
-            term = gf.mul(gf.sub(wit_flat[col], value), denoms[k])
+            term = gf.mul(gf.sub(pi_cols[k], value), denoms[k])
             h = ext_f.add(h, (gf.mul(term, ch[0]), gf.mul(term, ch[1])))
     return h

@@ -3,7 +3,9 @@
 Sigma columns come from a vectorized cycle walk over the copy placement,
 constant columns from the degree-aware selector tree; both are built in
 numpy on the host, then interpolated, low-degree-extended and
-Merkle-committed on the device (kernels B2, B3, B5). Setup column order
+Merkle-committed on the device (kernels B2, B3, B5; past the stream
+threshold the commit streams, prover/streaming.py, and B4 absorbs the
+blocks, leaving no setup LDE). Setup column order
 (prover/layout.py): [sigma over every copy column, the lookup columns
 included (C) | constants (K, then the table-id column in specialized mode;
 in general mode the table id is the marker row's gate constant) | stacked
@@ -24,6 +26,7 @@ from ..field import goldilocks as gf
 from ..merkle import MerkleTreeWithCap, commit_layers_device
 from ..ntt import lde_from_monomial, monomial_from_values
 from .layout import OracleLayout
+from .streaming import STREAM_THRESHOLD_BYTES, commit_streaming, use_streamed_lde
 
 
 def build_selector_tree(gates):
@@ -179,7 +182,7 @@ class SetupData:
     sigma_cols: np.ndarray  # (C, n) host
     constant_cols: np.ndarray  # (K, n) host, the table-id column last
     setup_monomials: torch.Tensor  # (C + K + T, n) device
-    setup_lde: torch.Tensor  # (C + K + T, lde, n) device
+    setup_lde: torch.Tensor | None  # (C + K + T, lde, n) device; None if streamed
     setup_tree: MerkleTreeWithCap
     selector_paths: list
     non_residues: list
@@ -197,10 +200,13 @@ def quotient_degree_for(assembly, tree) -> int:
 
 
 def commit_setup(assembly, config, sigma, consts, selector_paths,
-                 non_residues, quotient_degree, device) -> SetupData:
+                 non_residues, quotient_degree, device,
+                 stream_threshold_bytes=STREAM_THRESHOLD_BYTES) -> SetupData:
     """Interpolate, extend and commit the setup columns; build the VK.
     In specialized mode `consts` ends with the table-id column; with
-    lookups the assembly's stacked tables follow the constants."""
+    lookups the assembly's stacked tables follow the constants. Past
+    `stream_threshold_bytes` of LDE the commit streams and `setup_lde` is
+    None."""
     layout = OracleLayout.for_assembly(assembly, selector_paths)
     if sigma.shape[0] != layout.Ct or consts.shape[0] != layout.K:
         raise ValueError(f"setup of {sigma.shape[0]} sigma and {consts.shape[0]} constant "
@@ -211,11 +217,14 @@ def commit_setup(assembly, config, sigma, consts, selector_paths,
         cols.append(assembly.stacked_table_columns(layout.width))
     setup_cols = np.concatenate(cols, axis=0)
     monomials = monomial_from_values(gf.from_numpy(setup_cols, device))
-    lde = lde_from_monomial(monomials, config.fri_lde_factor)
-    tree = MerkleTreeWithCap(
-        commit_layers_device(lde, config.merkle_tree_cap_size),
-        config.merkle_tree_cap_size,
-    )
+    L, cap = config.fri_lde_factor, config.merkle_tree_cap_size
+    if use_streamed_lde(setup_cols.shape[0], assembly.trace_len * L,
+                        stream_threshold_bytes):
+        lde = None
+        tree = commit_streaming(monomials, L, cap)
+    else:
+        lde = lde_from_monomial(monomials, L)
+        tree = MerkleTreeWithCap(commit_layers_device(lde, cap), cap)
     vk = VerificationKey(
         geometry=assembly.geometry,
         trace_len=assembly.trace_len,
@@ -246,8 +255,11 @@ def commit_setup(assembly, config, sigma, consts, selector_paths,
     )
 
 
-def generate_setup(assembly, config, device="cuda") -> SetupData:
-    """Sigmas + constants -> monomials -> LDE -> Merkle tree -> VK."""
+def generate_setup(assembly, config, device="cuda",
+                   stream_threshold_bytes=STREAM_THRESHOLD_BYTES) -> SetupData:
+    """Sigmas + constants -> monomials -> LDE -> Merkle tree -> VK. The
+    commit streams when the setup's LDE would pass `stream_threshold_bytes`
+    (prover/streaming.py: 0 always, math.inf never)."""
     device = resolve_device(device)
     if config.fri_final_degree >= assembly.trace_len:
         raise ValueError("fri_final_degree must be below the trace length")
@@ -262,4 +274,5 @@ def generate_setup(assembly, config, device="cuda") -> SetupData:
     return commit_setup(
         assembly, config, sigma, consts, selector_paths,
         non_residues_for_copy_permutation(sigma.shape[0]), q, device,
+        stream_threshold_bytes,
     )

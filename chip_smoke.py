@@ -15,7 +15,10 @@ Phases, each printing its seconds:
      witness columns with the sweep's witness loads), and the sweep
      through each of its standalone entries (cp_quotient, lookup_quotient,
      lookup_quotient_general, gate_terms_fn), each with its time, the plain
-     version's time and its bound;
+     version's time and its bound; at the three 2^20 paths, which stream
+     their commits, kernel B4 too: the bare permutation of the (N, 12)
+     sponge states and the absorb of the widest column block a streamed
+     commit gives it;
   4. small circuits set up and proved on the card and on the CPU: fma at
      2^10, the xor4 lookup circuit at 2^9, sha256(b"abc") at 2^14, the
      general-lookup circuit at 2^9 and the witness-column circuit at 2^5.
@@ -23,9 +26,12 @@ Phases, each printing its seconds:
      text, and the port's verifier must accept;
   5. the bench fma-chain circuit (16 copy columns, 6 constant columns,
      degree 3; LDE 4, cap 16, 50 queries, no PoW, final degree 16)
-     synthesized, set up, proved and verified at 2^20 rows. The launch
-     counts go to 0 before synthesis and are read after verification; every
-     kernel must have launched on the prove;
+     synthesized, set up, proved and verified at 2^20 rows. Its commits
+     pass the 1.5 GiB stream threshold, so the prover streams them, as the
+     JAX package does. The launch counts go to 0 before synthesis and are
+     read after verification; every kernel of the path must have launched
+     on the prove (the absorb only on a streamed prove; the bare
+     permutation is on no prove);
   6. where the time of that prove goes: a warm prove (per-round seconds),
      then one under torch.profiler. Device time is grouped into the port's
      CUDA kernels (by kernel), the plain PyTorch work around them (by op)
@@ -33,7 +39,8 @@ Phases, each printing its seconds:
   7. the slice: bench.py's headline, sha256 over 8 KiB (60 copy columns,
      8 constant columns, degree 7, width-4 x8 specialized lookups; LDE 8,
      cap 16, 50 queries, no PoW, final degree 16) at 2^16 rows, as phase 5
-     with its own launch counts, and the circuit's digest against hashlib;
+     with its own launch counts (its commits stay materialized: no absorb
+     launch), and the circuit's digest against hashlib;
   8. the same profile as phase 6 for the sha256 prove, on its own line;
   9. general-purpose-column lookups (the JAX package's
      tests/test_lookup_general.py circuit: 8 copy, 0 witness, 6 constant
@@ -42,7 +49,13 @@ Phases, each printing its seconds:
      as phase 5 with the public input checked against the host's value,
      then profiled as phase 6;
  10. the same for the witness-column circuit (tests/test_witness_columns.py:
-     8 copy, 4 witness, 6 constant columns, degree 4) at 2^20 rows.
+     8 copy, 4 witness, 6 constant columns, degree 4) at 2^20 rows;
+ 11. (run right after phase 9, before phase 10) streamed against
+     materialized on phase 9's circuit: proved by the
+     default rule, with every commit streamed (threshold 0, setup too) and
+     with none streamed (threshold math.inf), a warm prove of each with its
+     peak device memory; the three proofs must be the same JSON text and
+     each accepted by the verifier.
 
 Prints the four profile lines, the kernel table as one JSON line, the card
 line, and as the last line
@@ -54,6 +67,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -82,6 +96,7 @@ PORT_FUNCTIONS = {
     "dif_stage": "ntt_forward/ntt_lde", "dif_tail": "ntt_forward/ntt_lde",
     "dit_head": "ntt_inverse", "dit_stage": "ntt_inverse",
     "leaf_hash": "poseidon2_leaf", "node_hash": "poseidon2_node",
+    "permute_batch": "poseidon2_permute", "absorb_block": "poseidon2_absorb",
     "sweep": "quotient_sweep", "fold": "fri_fold",
 }
 # entries the CUDA tracer adds for its own buffers, not work of the prove
@@ -170,7 +185,9 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
     from boojum_tpu_torch.hashes import poseidon2 as p2
     from boojum_tpu_torch.ntt import ntt
     from boojum_tpu_torch.prover import fri, quotient_sweep as qs
+    from boojum_tpu_torch.prover.layout import OracleLayout
     from boojum_tpu_torch.prover.setup import build_selector_tree, quotient_degree_for
+    from boojum_tpu_torch.prover.streaming import COL_BLOCK, use_streamed_lde
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -186,9 +203,11 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
         """(name, kernel call, plain call, bytes moved, shape) of each kernel
         on random inputs of the shapes the prove of `asm`'s circuit at 2^log_n
         rows gives it: the widest call of each kernel on the prove (the
-        witness oracle's commit for the inverse NTT, LDE and leaf hash; the
-        setup oracle's coset evaluation for the forward NTT; the first FRI
-        fold)."""
+        witness oracle's commit for the inverse NTT and LDE, and for the
+        leaf hash where the prover materializes, else the setup's commit;
+        the setup oracle's coset evaluation for the forward NTT; the first
+        FRI fold; where the prover streams, its widest absorbed block and
+        the (N, 12) sponge states for B4)."""
         n = 1 << log_n
         N = n * L
         tree, sel_paths = build_selector_tree(asm.gates)
@@ -203,10 +222,32 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
         wit, setup_m = rand(Cw, n), rand(Cs, n)
         sweep_args = (wit, setup_m, rand(C2, n), rand(2, n), rand(n), rand(n), rand(n))
         scale_row = ntt.lde_scale_rows(log_n, Q, dev)[1]
-        leaves, layer = rand(Cw, N), rand(N, 4)
+        layout = OracleLayout.for_assembly(asm, sel_paths)
+        streams = use_streamed_lde(layout.streamed_columns_estimate(Q, L), N)
+        setup_streams = use_streamed_lde(Cs, N)
+        if streams and setup_streams:
+            raise AssertionError("no materialized column commit on this path")
+        Cl = Cs if streams else Cw  # the widest leaf-hash commit
+        leaves, layer = rand(Cl, N), rand(N, 4)
         c0, c1, inv_x = rand(N), rand(N), rand(N // 2)
         sweep_rows = Cw + Cs + C2 + 2 + 3
-        return [
+        b4 = []
+        if streams:
+            # the widest block a streamed commit absorbs
+            b = min(COL_BLOCK, max(Cw, C2, 2 * Q))
+            states, block = rand(N, 12), rand(b, N)
+            st_k, st_p = states.clone(), states.clone()  # absorbed in place
+            b4 = [
+                ("poseidon2_permute",
+                 lambda: p2.poseidon2_permutation(states),
+                 lambda: p2.permutation_plain(states),
+                 w * 24 * N, f"({N}, 12) states"),
+                ("poseidon2_absorb",
+                 lambda: p2.absorb_cols(st_k, block),
+                 lambda: p2.absorb_cols_plain(st_p, block),
+                 w * (24 * N + b * N), f"({b}, {N}) block into ({N}, 12) states"),
+            ]
+        return b4 + [
             ("ntt_forward",
              lambda: ntt.fft_natural_to_bitreversed(setup_m, scale_row),
              lambda: ntt.fft_plain(setup_m, scale_row),
@@ -222,7 +263,7 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
             ("poseidon2_leaf",
              lambda: p2.leaf_hash(leaves),
              lambda: p2.leaf_hash_plain(leaves),
-             w * (Cw * N + 4 * N), f"({Cw}, 2^{log_n + L.bit_length() - 1}) leaves"),
+             w * (Cl * N + 4 * N), f"({Cl}, 2^{log_n + L.bit_length() - 1}) leaves"),
             ("poseidon2_node",
              lambda: p2.node_hash(layer),
              lambda: p2.node_hash_plain(layer),
@@ -343,12 +384,14 @@ def card_against_cpu(torch, label, asm, cfg) -> float:
     return secs
 
 
-def drive_path(torch, label, synthesize, cfg, log_n, phase) -> dict:
+def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
     """One path through the entry points a user calls, with the launch
     counts set to 0 just before synthesis and read after verification.
     synthesize() returns (assembly, a check of the circuit's output that
     takes the proof); the assembly must have 2^log_n rows, the size phase 3
-    checked the kernels at."""
+    checked the kernels at. `streams` says whether the prover's rule must
+    stream this path's commits: the absorb kernel then launches on the
+    prove, and otherwise never on the path."""
     from boojum_tpu_torch import kernels as K
     from boojum_tpu_torch.prover import generate_setup, prove, verify
 
@@ -386,12 +429,58 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase) -> dict:
     launches = dict(K.LAUNCHES)
     log(f"[{phase}] verified, output checked ({verify_s:.1f} s); launches on the "
         f"path {launches}")
-    missing = [k for k in K.KERNELS if launches[k] == 0 or on_prove[k] == 0]
+    # B4's bare permutation is on no prove: the absorb carries B4 there
+    expected = [k for k in K.KERNELS
+                if k != "poseidon2_permute" and (streams or k != "poseidon2_absorb")]
+    missing = [k for k in expected if launches[k] == 0 or on_prove[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the prove: {missing}")
+    if not streams and launches["poseidon2_absorb"]:
+        raise AssertionError(f"{label}: the commits streamed below the threshold")
     return dict(asm=asm, setup=setup, launches=launches, launches_on_prove=on_prove,
                 synthesis_s=synth_s, setup_s=setup_s, prove_cold_s=prove_s,
                 rounds_cold_s=timings, verify_s=verify_s, peak_device_memory_gib=peak)
+
+
+def stream_modes(torch, label, asm, setup, cfg) -> dict:
+    """Phase 11: the default rule, every commit streamed (threshold 0, a
+    streamed setup) and none streamed (math.inf), each proved twice (the
+    second timed, with its peak device memory); the same proof bytes from
+    all three, each verified. Takes over `setup`, the default rule's."""
+    from boojum_tpu_torch.prover import generate_setup, prove, verify
+
+    t0 = time.perf_counter()
+    out, proofs = {}, {}
+    for mode, threshold in (("default", None), ("materialized", math.inf),
+                            ("streamed", 0)):
+        kw = {} if threshold is None else {"stream_threshold_bytes": threshold}
+        if mode == "streamed":
+            del setup
+            torch.cuda.empty_cache()
+            setup = generate_setup(asm, cfg, device="cuda", **kw)
+            if setup.setup_lde is not None:
+                raise AssertionError(f"{label}: threshold 0 left the setup materialized")
+        prove(asm, setup, cfg, device="cuda", **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        t = time.perf_counter()
+        proof = prove(asm, setup, cfg, device="cuda", **kw)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not verify(setup.vk, proof, asm.gates):
+            raise AssertionError(f"{label}: the {mode} proof is rejected")
+        proofs[mode] = proof.to_json()
+        out[mode] = {"prove_warm_s": warm_s, "peak_device_memory_gib": peak,
+                     "allocated_before_prove_gib": base}
+        log(f"[11] {label}, {mode}: warm prove {warm_s:.3f} s, peak device memory "
+            f"{peak:.2f} GiB ({base:.2f} GiB allocated before the prove), verified")
+    if len(set(proofs.values())) != 1:
+        raise AssertionError(f"{label}: streamed and materialized proofs differ")
+    log(f"[11] the three proofs are the same {len(proofs['default'])} bytes "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return out
 
 
 def _device_us(evt) -> float:
@@ -510,7 +599,7 @@ def main() -> int:
     def fma_circuit():
         return build_fma(LOG_N).into_assembly(), lambda _proof: None
 
-    fma = drive_path(torch, FMA_PATH, fma_circuit, fma_proof_config(), LOG_N, 5)
+    fma = drive_path(torch, FMA_PATH, fma_circuit, fma_proof_config(), LOG_N, 5, True)
     t = time.perf_counter()
     prof_fma = profile_prove(torch, prove, fma["asm"], fma["setup"], fma_proof_config())
     prof_fma.update(circuit=FMA_PATH, card=card, **{
@@ -531,7 +620,8 @@ def main() -> int:
 
         return cs.into_assembly(), check
 
-    sha = drive_path(torch, SHA_PATH, sha_circuit, sha256_proof_config(), SHA_LOG_N, 7)
+    sha = drive_path(torch, SHA_PATH, sha_circuit, sha256_proof_config(), SHA_LOG_N, 7,
+                     False)
     t = time.perf_counter()
     prof_sha = profile_prove(torch, prove, sha["asm"], sha["setup"], sha256_proof_config())
     prof_sha.update(circuit=SHA_PATH, card=card,
@@ -561,7 +651,7 @@ def main() -> int:
 
             return cs.into_assembly(), check
 
-        run = drive_path(torch, label, circuit, sha256_proof_config(), LOG_N, phase)
+        run = drive_path(torch, label, circuit, sha256_proof_config(), LOG_N, phase, True)
         t = time.perf_counter()
         prof = profile_prove(torch, prove, run["asm"], run["setup"], sha256_proof_config())
         prof.update(circuit=label, card=card, **{
@@ -570,7 +660,11 @@ def main() -> int:
         log(f"[{phase}] warm prove {prof['prove_warm_s']:.3f} s, device busy "
             f"{prof['device_busy_ms']:.1f} ms, idle share "
             f"{prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
-        del run["asm"], run["setup"]
+        if phase == 9:
+            prof["streamed_against_materialized"] = stream_modes(
+                torch, label, run["asm"], run.pop("setup"), sha256_proof_config())
+        del run["asm"]
+        run.pop("setup", None)
         profiles.append(prof)
         paths[label] = run["launches"]
     for prof in profiles:

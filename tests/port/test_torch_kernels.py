@@ -2,7 +2,7 @@
 the card, word for word (tolerance 0), the quotient sweep in every layout
 and through its standalone entries, and the fma 2^10, xor4 lookup 2^9,
 general-lookup 2^9 and witness-column 2^5 proofs identical on the card and
-the CPU. Marked `cuda`: they skip where no card is present and run on the
+the CPU, materialized and streamed. Marked `cuda`: they skip where no card is present and run on the
 card with `python -m pytest tests/port/test_torch_kernels.py`."""
 
 import numpy as np
@@ -58,6 +58,18 @@ def test_poseidon2_kernels_match_plain(dev, width):
     _same(p2.leaf_hash(cols), p2.leaf_hash_plain(cols))
     layer = _rand(rng, 512, 4, device=dev)
     _same(p2.node_hash(layer), p2.node_hash_plain(layer))
+
+
+@pytest.mark.parametrize("b", [1, 8, 13, 32])
+def test_poseidon2_permute_and_absorb_match_plain(dev, b):
+    """Kernel B4: the bare permutation, and the absorb of a (b, N) block into
+    carried states in place, against their plain versions."""
+    rng = np.random.default_rng(100 + b)
+    state = _rand(rng, 1000, 12, device=dev)
+    _same(p2.poseidon2_permutation(state), p2.permutation_plain(state))
+    cols = _rand(rng, b, 1000, device=dev)
+    got = p2.absorb_cols(state.clone(), cols)
+    _same(got, p2.absorb_cols_plain(state.clone(), cols))
 
 
 def test_sweep_and_fold_kernels_match_plain(dev):
@@ -174,6 +186,25 @@ def test_proof_identical_on_card_and_cpu(dev, circuit):
         asm, cfg = build_zero_check_witness()[0].into_assembly(), small_proof_config()
     s_gpu = generate_setup(asm, cfg, device=dev)
     p_gpu = prove(asm, s_gpu, cfg, device=dev)
+    p_cpu = prove(asm, generate_setup(asm, cfg, device="cpu"), cfg, device="cpu")
+    assert p_gpu.to_json() == p_cpu.to_json()
+    assert verify(s_gpu.vk, p_gpu, asm.gates)
+
+
+@pytest.mark.parametrize("circuit", ["fma", "general"])
+def test_streamed_proof_on_card_matches_cpu(dev, circuit):
+    """Every commit streamed on the card (threshold 0, setup too): the
+    absorb kernel runs, and the proof is the CPU's materialized one."""
+    from boojum_tpu_torch import kernels as K
+
+    if circuit == "fma":
+        asm, cfg = build_fma(10).into_assembly(), fma_proof_config()
+    else:
+        asm, cfg = build_general_lookup()[0].into_assembly(), small_proof_config()
+    K.reset_launches()
+    s_gpu = generate_setup(asm, cfg, device=dev, stream_threshold_bytes=0)
+    p_gpu = prove(asm, s_gpu, cfg, device=dev, stream_threshold_bytes=0)
+    assert s_gpu.setup_lde is None and K.LAUNCHES["poseidon2_absorb"] > 0
     p_cpu = prove(asm, generate_setup(asm, cfg, device="cpu"), cfg, device="cpu")
     assert p_gpu.to_json() == p_cpu.to_json()
     assert verify(s_gpu.vk, p_gpu, asm.gates)

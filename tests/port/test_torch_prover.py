@@ -1,8 +1,8 @@
 """boojum_tpu_torch's prover against boojum_tpu's on the bench.py fma-chain
 circuit at 2^8 rows (CPU, plain versions of every kernel): synthesis,
 setup, the quotient sweep on one coset, the FRI fold, the checkpoint stream
-and the proof bytes, each word for word, and each package's verifier on the
-other's proof."""
+and the proof bytes (materialized, and with every commit streamed), each
+word for word, and each package's verifier on the other's proof."""
 
 import dataclasses
 import json
@@ -64,6 +64,18 @@ def port_run():
 
 
 @pytest.fixture(scope="module")
+def stream_run():
+    """The port's setup and prove with every commit streamed (threshold 0)."""
+    asm = build_fma(LOG_N).into_assembly()
+    cfg = ProofConfig(**CONFIG)
+    setup = generate_setup(asm, cfg, device="cpu", stream_threshold_bytes=0)
+    assert setup.setup_lde is None
+    log = CheckpointLog()
+    proof = prove(asm, setup, cfg, device="cpu", log=log, stream_threshold_bytes=0)
+    return SimpleNamespace(asm=asm, setup=setup, cfg=cfg, proof=proof, stream=log.stream())
+
+
+@pytest.fixture(scope="module")
 def compat_run(jax_run):
     """The port's prover on the JAX package's assembly and setup columns."""
     ja, js = jax_run.asm, jax_run.setup
@@ -114,14 +126,14 @@ def test_compat_reproduces_setup_cap(jax_run, compat_run):
     assert compat_run.setup.vk.setup_merkle_cap == jax_run.setup.vk.setup_merkle_cap
 
 
-@pytest.mark.parametrize("run", ["port_run", "compat_run"])
+@pytest.mark.parametrize("run", ["port_run", "compat_run", "stream_run"])
 def test_checkpoint_stream_matches_jax(request, jax_run, run):
     stream = request.getfixturevalue(run).stream
     assert [s[:2] for s in stream] == [s[:2] for s in jax_run.stream]
     assert stream == jax_run.stream
 
 
-@pytest.mark.parametrize("run", ["port_run", "compat_run"])
+@pytest.mark.parametrize("run", ["port_run", "compat_run", "stream_run"])
 def test_proof_bytes_match_jax(request, jax_run, run):
     assert request.getfixturevalue(run).proof.to_json() == jax_run.proof.to_json()
 

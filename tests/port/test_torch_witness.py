@@ -8,10 +8,13 @@ the setup cap, the checkpoint stream and the proof bytes, each word for
 word (tolerance 0: every value is an exact field element), and each
 package's verifier on the other's proof.
 
-Both packages prove once, inside test_prove_matches_jax."""
+The JAX package proves once, in the module's jax_proof fixture; the port
+proves materialized and with every commit streamed (threshold 0), and both
+proofs must be the JAX proof's bytes."""
 
 import dataclasses
 import json
+import math
 from functools import lru_cache
 from types import SimpleNamespace
 
@@ -122,12 +125,10 @@ def test_sweep_entry_matches_jax(entry):
     entry_against_jax(entry, jax_assembly()[0], 5, 64)
 
 
-def test_prove_matches_jax():
-    """The JAX prover's setup, checkpoint stream and proof JSON, and each
-    verifier on the other's proof; a changed witness opening rejected. The
-    one test of the file that proves, so that no xdist worker proves
-    twice."""
-    ja, jout = jax_assembly()
+@pytest.fixture(scope="module")
+def jax_proof():
+    """The JAX package's setup, proof and checkpoint stream."""
+    ja, _ = jax_assembly()
     jsetup = jgenerate_setup(ja, JCONFIG)
     log = JCheckpointLog()
     prev = install_checkpoint_log(log)
@@ -135,13 +136,25 @@ def test_prove_matches_jax():
         jproof = jprove(ja, jsetup, JCONFIG)
     finally:
         install_checkpoint_log(prev)
+    stream = [(e["round"], e["label"], e["digest"]) for e in log.entries]
+    return jsetup, jproof, stream
+
+
+@pytest.mark.parametrize("threshold", [math.inf, 0], ids=["materialized", "streamed"])
+def test_prove_matches_jax(jax_proof, threshold):
+    """The JAX prover's setup, checkpoint stream and proof JSON, and each
+    verifier on the other's proof; a changed witness opening rejected."""
+    ja, jout = jax_assembly()
+    jsetup, jproof, stream = jax_proof
     asm, _ = port_assembly()
-    setup = generate_setup(asm, small_proof_config(), device="cpu")
+    setup = generate_setup(asm, small_proof_config(), device="cpu",
+                           stream_threshold_bytes=threshold)
+    assert (setup.setup_lde is None) == (threshold == 0)
     tlog = CheckpointLog()
-    proof = prove(asm, setup, small_proof_config(), device="cpu", log=tlog)
+    proof = prove(asm, setup, small_proof_config(), device="cpu", log=tlog,
+                  stream_threshold_bytes=threshold)
     assert setup.vk.setup_merkle_cap == jsetup.vk.setup_merkle_cap
     assert json.dumps(setup.vk.to_dict()) == json.dumps(jsetup.vk.to_dict())
-    stream = [(e["round"], e["label"], e["digest"]) for e in log.entries]
     assert [s[:2] for s in tlog.stream()] == [s[:2] for s in stream]
     assert tlog.stream() == stream
     assert proof.to_json() == jproof.to_json()
