@@ -1,8 +1,9 @@
-"""boojum_tpu_torch: the Goldilocks PLONKish + FRI prover on PyTorch and CUDA.
+"""boojum_tpu_torch: the PLONKish + FRI prover on PyTorch and CUDA.
 
-A port of `boojum_tpu` (JAX on a TPU) to an NVIDIA H100. Plain tensor code is
-PyTorch over int64 words; every kernel the JAX package wrote in Pallas is a
-CUDA C++ kernel under `csrc/`, built with nvcc at first use. Entry points
+A port of `boojum_tpu` (JAX on a TPU) to an NVIDIA H100, over Goldilocks
+(int64 words) and over BabyBear (int32 words; a circuit names its field).
+Plain tensor code is PyTorch; every kernel the JAX package wrote in Pallas
+is a CUDA C++ kernel under `csrc/`, built with nvcc at first use. Entry points
 take an explicit `device=` that defaults to "cuda" and raise when no card is
 present; tests pass `device="cpu"`, where every kernel wrapper runs its plain
 PyTorch version. The package imports neither jax nor boojum_tpu.

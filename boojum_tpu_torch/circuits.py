@@ -23,6 +23,10 @@
 Both grow step by step to fill 2^log_n rows; at log_n None they are the
 JAX tests' own sizes, proved there with `small_proof_config()`, and the
 card proves them at 2^20 with `sha256_proof_config()`.
+
+The fma chain and the xor4 lookup circuit also synthesize over BabyBear
+(`field="babybear"`), as the JAX package's tests/test_bb_full_prover.py
+proves them; sha256 cannot (its u32 words need a field above 2^32).
 """
 
 from __future__ import annotations
@@ -60,9 +64,9 @@ SHA256_GEOMETRY = CSGeometry(
 SHA256_LOOKUP = LookupParameters(width=4, num_repetitions=8)
 
 
-def build_fma(log_n: int) -> ConstraintSystem:
+def build_fma(log_n: int, field: str = "goldilocks") -> ConstraintSystem:
     """The fma chain filling 2^log_n rows (8 rows left for padding)."""
-    cs = ConstraintSystem(FMA_GEOMETRY, 1 << log_n)
+    cs = ConstraintSystem(FMA_GEOMETRY, 1 << log_n, field=field)
     a = cs.alloc_variable_with_value(1)
     b = cs.alloc_variable_with_value(2)
     per_row = FmaGate.instance().num_repetitions(FMA_GEOMETRY)
@@ -83,11 +87,12 @@ def xor4_table() -> LookupTable:
     return LookupTable("xor4", 2, 1, np.stack([a, b, a ^ b], axis=1))
 
 
-def build_xor_lookup(num_lookups: int = 30, capacity: int = 1 << 10, seed: int = 7):
+def build_xor_lookup(num_lookups: int = 30, capacity: int = 1 << 10, seed: int = 7,
+                     field: str = "goldilocks"):
     """xor4 lookups of random nibbles (numpy seed `seed`), each output
     range-checked and folded into an FMA accumulator, which is the public
     input. Returns (cs, accumulator, last lookup output)."""
-    cs = ConstraintSystem(XOR_GEOMETRY, capacity, lookup_params=XOR_LOOKUP)
+    cs = ConstraintSystem(XOR_GEOMETRY, capacity, lookup_params=XOR_LOOKUP, field=field)
     xor_id = cs.add_lookup_table(xor4_table())
     rc_id = cs.add_lookup_table(range_check_table(4))
     rng = np.random.default_rng(seed)

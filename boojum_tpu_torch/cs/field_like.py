@@ -4,8 +4,12 @@
 - TensorOps    : int64 word tensors, base field (a gate or its captured
                  program over whole columns)
 - ExtScalarOps : (int, int) tuples, GF(p^2) (the verifier at z)
+- BBTensorOps, BBExtScalarOps : the BabyBear twins of TensorOps (the
+                 BabyBear quotient sweep) and of ExtScalarOps over
+                 GF(p^4) 4-tuples (the quotient identity at z)
 """
 
+from ..field import babybear as bb
 from ..field import extension as ext_f
 from ..field import gl
 from ..field import goldilocks as gf
@@ -77,3 +81,48 @@ class ExtScalarOps:
     @staticmethod
     def double(a):
         return ext_f.add_s(a, a)
+
+
+class BBTensorOps:
+    """BabyBear base-field ops over word tensors (constants stay ints)."""
+
+    @staticmethod
+    def zero():
+        return 0
+
+    @staticmethod
+    def one():
+        return 1
+
+    @staticmethod
+    def constant(v: int):
+        return v % bb.P
+
+    add = staticmethod(bb.add)
+    sub = staticmethod(bb.sub)
+    mul = staticmethod(bb.mul)
+    neg = staticmethod(bb.neg)
+    double = staticmethod(bb.double)
+
+
+class BBExtScalarOps:
+    @staticmethod
+    def zero():
+        return bb.ZERO_S
+
+    @staticmethod
+    def one():
+        return bb.ONE_S
+
+    @staticmethod
+    def constant(v: int):
+        return bb.ext_from_base_s(v)
+
+    add = staticmethod(bb.ext_add_s)
+    sub = staticmethod(bb.ext_sub_s)
+    mul = staticmethod(bb.ext_mul_s)
+    neg = staticmethod(bb.ext_neg_s)
+
+    @staticmethod
+    def double(a):
+        return bb.ext_add_s(a, a)

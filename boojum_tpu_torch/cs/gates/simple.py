@@ -4,12 +4,12 @@ constant_allocator.rs, nop_gate.rs, public_input.rs, reduction_gate.rs,
 zero_check.rs with its witness-column inverse, lookup_marker.rs).
 
 Synthesis resolves every value eagerly as a host int: a constructor computes
-its outputs and places the instance.
+its outputs and places the instance, reducing modulo the circuit's field
+(`cs.p`).
 """
 
 from __future__ import annotations
 
-from ...field import gl
 from .base import Gate
 
 
@@ -32,9 +32,9 @@ class FmaGate(Gate):
     @staticmethod
     def fma(cs, a, b, c, coeff_ab=1, coeff_c=1):
         """Allocate and constrain d = coeff_ab·a·b + coeff_c·c."""
-        ca, cc = coeff_ab % gl.P, coeff_c % gl.P
+        ca, cc = coeff_ab % cs.p, coeff_c % cs.p
         val = cs.values
-        value = (ca * val[a >> 1] * val[b >> 1] + cc * val[c >> 1]) % gl.P
+        value = (ca * val[a >> 1] * val[b >> 1] + cc * val[c >> 1]) % cs.p
         d = cs.alloc_variable_with_value(value)
         cs.place_gate(FmaGate.instance(), (a, b, c, d), (ca, cc))
         return d
@@ -43,7 +43,7 @@ class FmaGate(Gate):
     def enforce_fma(cs, a, b, c, d, coeff_ab=1, coeff_c=1):
         """Constrain coeff_ab·a·b + coeff_c·c = d over existing variables."""
         cs.place_gate(FmaGate.instance(), (a, b, c, d),
-                      (coeff_ab % gl.P, coeff_c % gl.P))
+                      (coeff_ab % cs.p, coeff_c % cs.p))
 
 
 class ConstantsAllocatorGate(Gate):
@@ -63,7 +63,7 @@ class ConstantsAllocatorGate(Gate):
 
     @staticmethod
     def allocate_constant(cs, value: int):
-        value = value % gl.P
+        value = value % cs.p
         v = cs.alloc_variable_with_value(value)
         cs.place_gate(ConstantsAllocatorGate.instance(), (v,), (value,))
         return v
@@ -113,9 +113,9 @@ class ReductionGate(Gate):
     @staticmethod
     def reduce(cs, vars4, coeffs4):
         """Allocate and constrain out = Σ coeffs4[i]·vars4[i]."""
-        cf = tuple(c % gl.P for c in coeffs4)
+        cf = tuple(c % cs.p for c in coeffs4)
         val = cs.values
-        value = sum(c * val[v >> 1] for v, c in zip(vars4, cf)) % gl.P
+        value = sum(c * val[v >> 1] for v, c in zip(vars4, cf)) % cs.p
         out = cs.alloc_variable_with_value(value)
         cs.place_gate(ReductionGate.instance(), (*vars4, out), cf)
         return out
@@ -124,7 +124,7 @@ class ReductionGate(Gate):
     def enforce_reduce(cs, vars4, coeffs4, out):
         """Constrain Σ coeffs4[i]·vars4[i] = out over existing variables."""
         cs.place_gate(ReductionGate.instance(), (*vars4, out),
-                      tuple(c % gl.P for c in coeffs4))
+                      tuple(c % cs.p for c in coeffs4))
 
 
 class ZeroCheckWitnessGate(Gate):
@@ -153,7 +153,7 @@ class ZeroCheckWitnessGate(Gate):
         out = cs.alloc_variable_without_value()
         aux = cs.alloc_witness_without_value()
         cs.set_values_with_dependencies(
-            [x], [out, aux], lambda v: [1, 0] if v[0] == 0 else [0, gl.inv(v[0])])
+            [x], [out, aux], lambda v: [1, 0] if v[0] == 0 else [0, cs.inv(v[0])])
         cs.place_gate(ZeroCheckWitnessGate.instance(), (x, out), (), wit_places=(aux,))
         return out
 

@@ -1,1 +1,1 @@
-from .reference_cs import ConstraintSystem, CSAssembly
+from .reference_cs import ConstraintSystem, CSAssembly, FieldCapacityError

@@ -21,6 +21,10 @@ table's row 0 and counts it.
 Witness columns (places 2k + 1) hold values no copy constraint wires,
 placed beside a gate's copy cells by `place_gate(..., wit_places=...)`.
 
+The circuit is synthesized over a field (`field="goldilocks"` or
+"babybear"): values and gate constants reduce modulo its prime, and the
+assembly carries the field's name, on which setup and prove dispatch.
+
 Difference: every value is resolved eagerly as a host int when its
 variable is allocated, so there is no resolver.
 """
@@ -29,15 +33,24 @@ from __future__ import annotations
 
 import numpy as np
 
-from ...field import gl
+from ...field.spec import spec_of
 from ..gates.base import Gate
 from ..gates.simple import ConstantsAllocatorGate, LookupMarkerGate, NopGate
 from ..types import CSGeometry, LookupParameters
 
 
+class FieldCapacityError(ValueError):
+    """A gadget's arithmetic does not fit the circuit's field (raised at
+    synthesis): sha256's u32 words need every 32-bit value to be a distinct
+    field element, which BabyBear cannot give."""
+
+
 class ConstraintSystem:
     def __init__(self, geometry: CSGeometry, max_trace_len: int,
-                 lookup_params: LookupParameters | None = None):
+                 lookup_params: LookupParameters | None = None,
+                 field: str = "goldilocks"):
+        self.field = field
+        self.p = spec_of(field).p
         self.lookup_params = lookup_params or LookupParameters()
         self.geometry = geometry
         self.max_trace_len = max_trace_len
@@ -64,7 +77,7 @@ class ConstraintSystem:
     # -- allocation ---------------------------------------------------------
 
     def alloc_variable_with_value(self, value: int) -> int:
-        self.values.append(int(value) % gl.P)
+        self.values.append(int(value) % self.p)
         return (len(self.values) - 1) << 1
 
     def alloc_multiple_variables_without_values(self, n: int) -> list[int]:
@@ -88,10 +101,24 @@ class ConstraintSystem:
         """Value `outs` as fn(values of `ins`), at once."""
         vals = fn([self.get_value(p) for p in ins])
         for p, v in zip(outs, vals):
-            self._store(p)[p >> 1] = int(v) % gl.P
+            self._store(p)[p >> 1] = int(v) % self.p
 
     def get_value(self, place: int) -> int:
         return self._store(place)[place >> 1]
+
+    def require_field_bits(self, bits: int, feature: str) -> None:
+        """Raise FieldCapacityError unless every value below 2^bits is a
+        distinct element of the circuit's field."""
+        if (1 << bits) > self.p:
+            raise FieldCapacityError(
+                f"{feature} needs {bits}-bit values as single field elements, but "
+                f"the circuit's field {self.field!r} has p = {self.p} (< 2^{bits}); "
+                f"synthesize it over a larger field (field='goldilocks')"
+            )
+
+    def inv(self, v: int) -> int:
+        """v^-1 in the circuit's field."""
+        return pow(int(v), self.p - 2, self.p)
 
     def zero_var(self) -> int:
         return self.allocate_constant(0)
@@ -101,7 +128,7 @@ class ConstraintSystem:
 
     def allocate_constant(self, value: int) -> int:
         """A variable pinned to a constant; one per distinct value."""
-        value = value % gl.P
+        value = value % self.p
         v = self._constants_cache.get(value)
         if v is None:
             v = ConstantsAllocatorGate.allocate_constant(self, value)
@@ -134,7 +161,7 @@ class ConstraintSystem:
             self.next_row += 1
             self.row_gate[row] = gid
             if constants:
-                self.gate_constants[row] = tuple(int(c) % gl.P for c in constants)
+                self.gate_constants[row] = tuple(int(c) % self.p for c in constants)
             tool = [row, 0]
             self._tooling[key] = tool
         row, used = tool
@@ -352,6 +379,7 @@ class ConstraintSystem:
             multiplicities=multiplicities,
             table_stack=table_stack,
             num_lookup_tables=len(self.lookup_tables) if lookups_on else 0,
+            field=self.field,
         )
 
 
@@ -368,16 +396,17 @@ def stack_tables(tables, width: int, n: int) -> np.ndarray:
 
 
 class CSAssembly:
-    """Frozen, provable CS: placement, column values, gates, public inputs,
-    the witness columns and, with lookups, the specialized columns (none in
-    general mode), multiplicities and the stacked tables."""
+    """Frozen, provable CS over `field`: placement, column values, gates,
+    public inputs, the witness columns and, with lookups, the specialized
+    columns (none in general mode), multiplicities and the stacked tables."""
 
     def __init__(self, *, geometry, trace_len, gates, row_gate, gate_constants,
                  copy_placement, copy_cols_values, public_inputs,
                  wit_placement=None, wit_cols_values=None,
                  lookup_params=None, lookup_placement=None, lookup_cols_values=None,
                  lookup_table_id_col=None, multiplicities=None, table_stack=None,
-                 num_lookup_tables=0):
+                 num_lookup_tables=0, field="goldilocks"):
+        self.field = field
         self.geometry = geometry
         self.trace_len = trace_len
         self.gates = gates

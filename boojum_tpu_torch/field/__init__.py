@@ -1,3 +1,4 @@
-"""Goldilocks field and its quadratic extension over torch int64 words."""
+"""Goldilocks and its quadratic extension over torch int64 words; BabyBear
+and its quartic extension over int32 words; the fields' protocol records."""
 
-from . import extension, gl, goldilocks
+from . import babybear, extension, gl, goldilocks, spec

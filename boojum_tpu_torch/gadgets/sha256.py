@@ -59,6 +59,9 @@ class _Sha256Ctx:
     """Per-circuit handles: table ids + shared constants."""
 
     def __init__(self, cs):
+        # sha256 words are u32 variables, one field element each: a field
+        # below 2^32 (BabyBear) cannot hold them
+        cs.require_field_bits(32, "sha256 gadget")
         ids = register_sha256_tables(cs)
         self.cs = cs
         self.trixor = ids["trixor4"]

@@ -111,3 +111,62 @@ ALL_ROUND_CONSTANTS = [
 ROUND_CONSTANTS_PER_ROUND = [
     ALL_ROUND_CONSTANTS[r * 12 : (r + 1) * 12] for r in range(TOTAL_NUM_ROUNDS)
 ]
+
+
+# ---------------------------------------------------------------------------
+# Poseidon2 BabyBear, width 16: p = 2^31 - 2^27 + 1, x^7 S-box, external
+# matrix circ(2*M4, M4, M4, M4), internal all-ones + diag, 4 + 13 + 4
+# rounds. The JAX package defines these constants itself (no upstream
+# implementation to match): each is drawn by rejection sampling from
+# blake2b(domain tag ‖ counter). The derivation is copied here as it is, so
+# the port holds the same protocol constants without importing that package.
+# ---------------------------------------------------------------------------
+
+BB_P = (1 << 31) - (1 << 27) + 1  # 2013265921
+BB_STATE_WIDTH = 16
+BB_RATE = 8
+BB_CAPACITY = 8
+BB_HALF_NUM_FULL_ROUNDS = 4
+BB_NUM_FULL_ROUNDS_TOTAL = 8
+BB_NUM_PARTIAL_ROUNDS = 13
+BB_TOTAL_NUM_ROUNDS = 21
+
+
+def _bb_sample(tag: str, count: int) -> list:
+    """Field elements from 4-byte LE words of a blake2b counter stream,
+    rejecting w >= 2p (floor(2^32/p) = 2, so w mod p is uniform)."""
+    import hashlib
+
+    out: list = []
+    ctr = 0
+    bound = 2 * BB_P
+    while len(out) < count:
+        h = hashlib.blake2b(
+            f"boojum_tpu.poseidon2.babybear.{tag}.{ctr}".encode(),
+            digest_size=32,
+        ).digest()
+        ctr += 1
+        for i in range(0, 32, 4):
+            w = int.from_bytes(h[i : i + 4], "little")
+            if w < bound:
+                out.append(w % BB_P)
+                if len(out) == count:
+                    break
+    return out
+
+
+# 8 full rounds x 16 lanes; partial rounds add a constant to lane 0 only.
+BB_EXTERNAL_ROUND_CONSTANTS = [
+    _bb_sample("external", BB_NUM_FULL_ROUNDS_TOTAL * BB_STATE_WIDTH)[
+        r * BB_STATE_WIDTH : (r + 1) * BB_STATE_WIDTH
+    ]
+    for r in range(BB_NUM_FULL_ROUNDS_TOTAL)
+]
+BB_INTERNAL_ROUND_CONSTANTS = _bb_sample("internal", BB_NUM_PARTIAL_ROUNDS)
+
+# Internal-matrix diagonal (M_I = all-ones + diag(d)), d_i not 0 or p - 1.
+BB_M_I_DIAGONAL = [
+    d for d in _bb_sample("diagonal", 4 * BB_STATE_WIDTH)
+    if d not in (0, BB_P - 1)
+][:BB_STATE_WIDTH]
+assert len(BB_M_I_DIAGONAL) == BB_STATE_WIDTH

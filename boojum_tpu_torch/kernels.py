@@ -52,6 +52,15 @@ KERNELS = {
         "boojum_tpu/prover/pallas_sweep.py:537 build_coset_terms",
     ),
     "fri_fold": ("fri_fold", "boojum_tpu/prover/pallas_sweep.py:858 _fold_body"),
+    "poseidon2_bb_permute": (
+        "poseidon2_bb", "boojum_tpu/hashes/poseidon2_bb.py:208 _perm_kernel"
+    ),
+    "poseidon2_bb_leaf": (
+        "poseidon2_bb", "boojum_tpu/hashes/poseidon2_bb.py:208 _perm_kernel"
+    ),
+    "poseidon2_bb_node": (
+        "poseidon2_bb", "boojum_tpu/hashes/poseidon2_bb.py:208 _perm_kernel"
+    ),
 }
 # the quotient sweep's standalone entries (prover/quotient_sweep.py): the
 # same launch with parts switched off, counted as the sweep's launches ->
@@ -63,7 +72,7 @@ SWEEP_ENTRIES = {
         "boojum_tpu/prover/pallas_sweep.py:776 lookup_quotient_general",
     "gate_terms_fn": "boojum_tpu/prover/pallas_sweep.py:788 gate_terms_fn",
 }
-LIBRARIES = ("ntt", "poseidon2", "quotient_sweep", "fri_fold")
+LIBRARIES = ("ntt", "poseidon2", "quotient_sweep", "fri_fold", "poseidon2_bb")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -90,6 +99,12 @@ _SIGNATURES = {
     },
     "fri_fold": {
         "bt_fri_fold": (_P, _P, _LL, _U64, _U64, _P, _P, _P, _P),
+    },
+    "poseidon2_bb": {
+        "bt_poseidon2_bb_set_constants": (_P, _I),
+        "bt_poseidon2_bb_permute": (_P, _LL, _P, _P),
+        "bt_poseidon2_bb_leaf": (_P, _I, _I, _LL, _LL, _LL, _P, _P),
+        "bt_poseidon2_bb_node": (_P, _LL, _P, _LL, _LL, _P, _P),
     },
 }
 
@@ -186,12 +201,13 @@ def stream(device: torch.device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def require(t: torch.Tensor, what: str, shape=None) -> None:
-    """Validate a kernel operand: int64, contiguous, and of the given shape."""
+def require(t: torch.Tensor, what: str, shape=None, dtype=torch.int64) -> None:
+    """Validate a kernel operand: of `dtype` (int64 Goldilocks words, int32
+    BabyBear words), contiguous, and of the given shape."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != torch.int64:
-        raise TypeError(f"{what}: expected int64 words, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype} words, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

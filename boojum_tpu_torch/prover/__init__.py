@@ -1,4 +1,6 @@
-"""The Goldilocks prover: setup, prove, verify."""
+"""The prover: setup, prove, verify. `generate_setup` and `prove` take a
+Goldilocks or a BabyBear assembly (prover_bb.py); `verify` is Goldilocks
+only, as in the JAX package."""
 
 from .config import ProofConfig
 from .proof import OracleQuery, Proof, SingleRoundQueries

@@ -164,10 +164,15 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     the checkpoint stream (utils/report.CheckpointLog); `timings`, if given,
     a dict, gets each round's wall seconds. The commits stream when the
     JAX package's estimate of the oracles' LDE storage passes
-    `stream_threshold_bytes` (0 always, math.inf never)."""
+    `stream_threshold_bytes` (0 always, math.inf never). A BabyBear
+    assembly goes to prover_bb.prove_full_babybear, which never streams."""
     device = resolve_device(device)
-    checkpoint = log.add if log is not None else (lambda *_a: None)
     clock = _Clock(timings, device)
+    if getattr(assembly, "field", "goldilocks") == "babybear":
+        from .prover_bb import prove_full_babybear
+
+        return prove_full_babybear(assembly, setup, config, device, log, clock)
+    checkpoint = log.add if log is not None else (lambda *_a: None)
     n = assembly.trace_len
     log_n = n.bit_length() - 1
     L = config.fri_lde_factor

@@ -10,6 +10,11 @@ blocks, leaving no setup LDE). Setup column order
 included (C) | constants (K, then the table-id column in specialized mode;
 in general mode the table id is the marker row's gate constant) | stacked
 table columns (width + 1, lookups only)].
+
+A BabyBear assembly (`assembly.field == "babybear"`) takes the JAX
+package's _generate_setup_babybear: int32 columns, the 31^col coset
+representatives, the coset-31 LDE and a commit over paired leaves with
+kernel B8; its VK names the poseidon2_babybear transcript.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from .. import resolve_device
 from ..cs.selector_tree import GateDescription, compute_selector_placement
+from ..field import babybear as bb
 from ..field import gl
 from ..field import goldilocks as gf
 from ..merkle import MerkleTreeWithCap, commit_layers_device
@@ -58,6 +64,15 @@ def non_residues_for_copy_permutation(num_cols: int) -> list[int]:
     return out
 
 
+def non_residues_for_copy_permutation_bb(num_cols: int) -> list[int]:
+    """BabyBear coset representatives k_col = 31^col (31 generates the
+    multiplicative group)."""
+    out = [1]
+    for _ in range(1, num_cols):
+        out.append(bb.mul_s(out[-1], bb.MULTIPLICATIVE_GENERATOR))
+    return out
+
+
 def _sigma_cells(copy_placement: np.ndarray) -> np.ndarray:
     """Flat cell -> next cell in its cycle (cells holding one variable form a
     cycle; vacant cells are fixed points)."""
@@ -91,6 +106,17 @@ def compute_sigma_values(copy_placement: np.ndarray, non_residues=None):
     ks = np.array([int(k) for k in non_residues], dtype=np.uint64)
     vals = gl.mul_np(ks[sigma_cell // n], w_pows[sigma_cell % n])
     return vals.reshape(C, n)
+
+
+def compute_sigma_values_bb(copy_placement: np.ndarray, non_residues=None):
+    """The BabyBear twin of compute_sigma_values: (C, n) uint32."""
+    C, n = copy_placement.shape
+    sigma_cell = _sigma_cells(copy_placement)
+    w_pows = bb.powers_np(bb.omega(n.bit_length() - 1), n)
+    if non_residues is None:
+        non_residues = non_residues_for_copy_permutation_bb(C)
+    ks = np.array([int(k) for k in non_residues], dtype=np.uint32)
+    return bb.mul_np(ks[sigma_cell // n], w_pows[sigma_cell % n]).reshape(C, n)
 
 
 def build_constant_columns(assembly, selector_paths) -> np.ndarray:
@@ -137,6 +163,7 @@ class VerificationKey:
     lookup_params: object
     num_lookup_tables: int
     quotient_degree: int
+    transcript: str = "poseidon2"  # the Fiat-Shamir transcript a proof replays
 
     def to_dict(self) -> dict:
         """The JAX package's VK JSON fields, in its order."""
@@ -146,7 +173,7 @@ class VerificationKey:
             "trace_len": self.trace_len,
             "fri_lde_factor": self.fri_lde_factor,
             "quotient_degree": self.quotient_degree,
-            "transcript": "poseidon2",
+            "transcript": self.transcript,
             "cap_size": self.cap_size,
             "num_queries": self.num_queries,
             "pow_bits": self.pow_bits,
@@ -182,8 +209,9 @@ class SetupData:
     sigma_cols: np.ndarray  # (C, n) host
     constant_cols: np.ndarray  # (K, n) host, the table-id column last
     setup_monomials: torch.Tensor  # (C + K + T, n) device
-    setup_lde: torch.Tensor | None  # (C + K + T, lde, n) device; None if streamed
-    setup_tree: MerkleTreeWithCap
+    # (C + K + T, lde, n) device; None if streamed; BabyBear: (C + K + T, lde·n)
+    setup_lde: torch.Tensor | None
+    setup_tree: MerkleTreeWithCap  # BabyBear: bb_kernels.BBMerkleTree
     selector_paths: list
     non_residues: list
 
@@ -265,6 +293,8 @@ def generate_setup(assembly, config, device="cuda",
         raise ValueError("fri_final_degree must be below the trace length")
     tree, selector_paths = build_selector_tree(assembly.gates)
     q = quotient_degree_for(assembly, tree)
+    if getattr(assembly, "field", "goldilocks") == "babybear":
+        return _generate_setup_babybear(assembly, config, selector_paths, q, device)
     sigma = compute_sigma_values(
         np.concatenate([assembly.copy_placement, assembly.lookup_placement], axis=0)
     )
@@ -275,4 +305,60 @@ def generate_setup(assembly, config, device="cuda",
         assembly, config, sigma, consts, selector_paths,
         non_residues_for_copy_permutation(sigma.shape[0]), q, device,
         stream_threshold_bytes,
+    )
+
+
+def _generate_setup_babybear(assembly, config, selector_paths, quotient_degree,
+                             device) -> SetupData:
+    """The BabyBear setup: uint32 sigma, constant and table columns built on
+    the host, then interpolated, extended over the coset 31·<w_N> and
+    committed over paired leaves on the device (kernel B8)."""
+    from ..ntt import bb_ntt
+    from .bb_kernels import BBMerkleTree
+
+    if assembly.lookup_mode == "general":
+        raise ValueError("the BabyBear prover supports specialized lookup columns only")
+    full_placement = np.concatenate([assembly.copy_placement, assembly.lookup_placement],
+                                    axis=0)
+    non_residues = non_residues_for_copy_permutation_bb(full_placement.shape[0])
+    sigma = compute_sigma_values_bb(full_placement, non_residues)
+    consts = build_constant_columns(assembly, selector_paths).astype(np.uint32)
+    cols = [sigma, consts]
+    if assembly.lookups_enabled:
+        consts = np.concatenate(
+            [consts, assembly.lookup_table_id_col[None, :].astype(np.uint32)])
+        cols = [sigma, consts,
+                assembly.stacked_table_columns(assembly.lookup_params.width).astype(np.uint32)]
+    monomials = bb_ntt.monomial_from_values(bb.from_numpy(np.concatenate(cols), device))
+    L, cap = config.fri_lde_factor, config.merkle_tree_cap_size
+    lde = bb_ntt.lde(monomials, L)
+    tree = BBMerkleTree.commit(lde, cap)
+    vk = VerificationKey(
+        geometry=assembly.geometry,
+        trace_len=assembly.trace_len,
+        fri_lde_factor=L,
+        cap_size=cap,
+        num_queries=config.num_queries,
+        pow_bits=config.pow_bits,
+        fri_final_degree=config.fri_final_degree,
+        gate_names=[g.name for g in assembly.gates],
+        selector_paths=selector_paths,
+        public_input_locations=[(c, r) for (c, r, _v) in assembly.public_inputs],
+        setup_merkle_cap=tree.get_cap(),
+        num_copy_cols=sigma.shape[0],
+        num_wit_cols=assembly.num_wit_cols,
+        lookup_params=assembly.lookup_params if assembly.lookups_enabled else None,
+        num_lookup_tables=assembly.num_lookup_tables,
+        quotient_degree=quotient_degree,
+        transcript="poseidon2_babybear",
+    )
+    return SetupData(
+        vk=vk,
+        sigma_cols=sigma,
+        constant_cols=consts,
+        setup_monomials=monomials,
+        setup_lde=lde,
+        setup_tree=tree,
+        selector_paths=selector_paths,
+        non_residues=non_residues,
     )

@@ -47,6 +47,12 @@ def _powers_iter(a):
 
 
 def verify(vk, proof, gates) -> bool:
+    if vk.transcript != "poseidon2":
+        # as in the JAX package: a full BabyBear proof has no verifier, its
+        # check is prover_bb.quotient_identity_at_z with the query paths
+        raise ValueError(f"verify takes Goldilocks proofs; this key's transcript is "
+                         f"{vk.transcript!r}: check a BabyBear proof with "
+                         f"prover_bb.quotient_identity_at_z and bb_kernels.verify_path_bb")
     geometry = vk.geometry
     n = vk.trace_len
     log_n = n.bit_length() - 1

@@ -18,12 +18,17 @@ Phases, each printing its seconds:
      version's time and its bound; at the three 2^20 paths, which stream
      their commits, kernel B4 too: the bare permutation of the (N, 12)
      sponge states and the absorb of the widest column block a streamed
-     commit gives it;
+     commit gives it; and kernel B8 (BabyBear Poseidon2) at the BabyBear fma
+     and xor4 2^20 proves' shapes: the leaf sponge of the widest oracle
+     (paired leaves), the node compression of the widest layer and the bare
+     permutation of as many (N, 16) states as that oracle has leaves;
   4. small circuits set up and proved on the card and on the CPU: fma at
      2^10, the xor4 lookup circuit at 2^9, sha256(b"abc") at 2^14, the
-     general-lookup circuit at 2^9 and the witness-column circuit at 2^5.
+     general-lookup circuit at 2^9 and the witness-column circuit at 2^5,
+     and over BabyBear the fma chain and the xor4 lookup circuit at 2^10.
      The two setup caps of each must be equal, the two proofs the same JSON
-     text, and the port's verifier must accept;
+     text, and the port's verifier must accept (a BabyBear proof: the
+     quotient identity at z and every query's Merkle paths);
   5. the bench fma-chain circuit (16 copy columns, 6 constant columns,
      degree 3; LDE 4, cap 16, 50 queries, no PoW, final degree 16)
      synthesized, set up, proved and verified at 2^20 rows. Its commits
@@ -55,9 +60,20 @@ Phases, each printing its seconds:
      default rule, with every commit streamed (threshold 0, setup too) and
      with none streamed (threshold math.inf), a warm prove of each with its
      peak device memory; the three proofs must be the same JSON text and
-     each accepted by the verifier.
+     each accepted by the verifier;
+ 12. the BabyBear prover (prover/prover_bb.py): the fma chain synthesized
+     over BabyBear at 2^20 rows with the fma config, driven as phase 5 (B8
+     must launch on the prove, no Goldilocks kernel anywhere on the path),
+     checked by the quotient identity at z, every query's Merkle paths and
+     the public input against the host's own run of the chain, then
+     profiled as phase 6;
+ 13. the same for the xor4 lookup circuit grown to 2^20 rows, with
+     sha256's proof config (LDE 8, cap 16, 50 queries, final degree 16),
+     the public input checked against the accumulator's host value;
+ 14. the BabyBear mini-STARK (prover/bb_prover.py) at 2^20 rows, proved on
+     the card and accepted by its verifier, B8 launched.
 
-Prints the four profile lines, the kernel table as one JSON line, the card
+Prints the seven profile lines, the kernel table as one JSON line, the card
 line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, if any phase
 fails, if no CUDA device is available, or if the package is missing.
@@ -80,6 +96,9 @@ SHA_LOG_N = 16
 SHA_PATH = f"sha256 {SHA_BYTES} B, 2^{SHA_LOG_N}"
 GEN_PATH = f"general lookups 2^{LOG_N}"
 WIT_PATH = f"witness columns 2^{LOG_N}"
+BB_FMA_PATH = f"babybear fma 2^{LOG_N}"
+BB_XOR_PATH = f"babybear xor4 2^{LOG_N}"
+BB_MINI_PATH = f"babybear mini-STARK 2^{LOG_N}"
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published
 # 32-bit integer multiply-add and add issue per SM per clock on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -90,6 +109,14 @@ INT32_PER_SM_CLOCK = 64
 # from the instruction sequences of csrc/goldilocks.cuh, not a count
 OPS_PER_MUL = 16
 OPS_PER_ADD = 4
+# B8 (csrc/poseidon2_bb.cu) counts by pipe: multiply-adds issue to the FMA
+# pipe, adds and min/max to the ALU pipe, each at INT32_PER_SM_CLOCK, so its
+# bound is the busier pipe. A Montgomery product is three multiply-adds (a
+# wide multiply, a low multiply, a wide multiply-add) and two ALU
+# instructions (the conditional subtract: a subtract and an unsigned min);
+# an add is two ALU instructions (the add and the min). Estimates from the
+# source's sequences, not a count of the compiled code.
+BB_MUL_FMA, BB_MUL_ALU, BB_ADD_ALU = 3, 2, 2
 
 # CUDA kernel function -> the port's kernel it belongs to (phase 6)
 PORT_FUNCTIONS = {
@@ -98,6 +125,8 @@ PORT_FUNCTIONS = {
     "leaf_hash": "poseidon2_leaf", "node_hash": "poseidon2_node",
     "permute_batch": "poseidon2_permute", "absorb_block": "poseidon2_absorb",
     "sweep": "quotient_sweep", "fold": "fri_fold",
+    "permute_bb": "poseidon2_bb_permute", "leaf_bb": "poseidon2_bb_leaf",
+    "node_bb": "poseidon2_bb_node",
 }
 # entries the CUDA tracer adds for its own buffers, not work of the prove
 PROFILER_MARKERS = ("Command Buffer Full", "Activity Buffer Request")
@@ -161,8 +190,12 @@ def timed(torch, fn, reps: int, warm_up: bool = True) -> float:
 
 
 def max_abs_err(gf, a, b) -> int:
-    """Largest |a - b| over the words (as unsigned integers)."""
-    na, nb = gf.to_numpy(a).ravel(), gf.to_numpy(b).ravel()
+    """Largest |a - b| over the words (as unsigned integers: 64-bit
+    Goldilocks words, 32-bit BabyBear words)."""
+    if a.element_size() == b.element_size() == 4:
+        na, nb = a.cpu().numpy().ravel(), b.cpu().numpy().ravel()
+    else:
+        na, nb = gf.to_numpy(a).ravel(), gf.to_numpy(b).ravel()
     bad = na != nb
     if not bad.any():
         return 0
@@ -176,16 +209,19 @@ def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
+def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
     """Every kernel against its plain version at the shapes each prove path
-    gives it. `paths` holds (path, an assembly of the path's circuit at a
-    small size, log2 of the path's rows, its proof config)."""
+    gives it. `paths` (Goldilocks) and `bb_paths` (BabyBear) hold (path, an
+    assembly of the path's circuit at a small size, log2 of the path's
+    rows, its proof config)."""
     from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch.field import babybear as bb
     from boojum_tpu_torch.field import goldilocks as gf
     from boojum_tpu_torch.hashes import poseidon2 as p2
+    from boojum_tpu_torch.hashes import poseidon2_bb as p2bb
     from boojum_tpu_torch.ntt import ntt
-    from boojum_tpu_torch.prover import fri, quotient_sweep as qs
-    from boojum_tpu_torch.prover.layout import OracleLayout
+    from boojum_tpu_torch.prover import fri, quotient_sweep as qs, stages_bb
+    from boojum_tpu_torch.prover.layout import OracleLayout, chunk_columns
     from boojum_tpu_torch.prover.setup import build_selector_tree, quotient_degree_for
     from boojum_tpu_torch.prover.streaming import COL_BLOCK, use_streamed_lde
 
@@ -198,6 +234,55 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
         x = torch.randint(-(2**63), 2**63 - 1, shape, generator=gen,
                           dtype=torch.int64, device=dev)
         return torch.where((x ^ -(2**63)) >= (gf.P ^ 2**63), x - gf.P_I64, x)
+
+    def bb_rand(*shape):
+        return torch.randint(0, bb.P, shape, generator=gen, dtype=torch.int32, device=dev)
+
+    core_muls, core_adds = p2bb.permutation_op_counts()
+
+    def b8_ops(perms, conversions):
+        """The busier pipe's instructions for `perms` permutations and
+        `conversions` words into or out of Montgomery form (a multiply each)."""
+        muls = perms * core_muls + conversions
+        return max(muls * BB_MUL_FMA, muls * BB_MUL_ALU + perms * core_adds * BB_ADD_ALU)
+
+    def bb_cases(asm, log_n, L):
+        """(name, kernel call, plain call, bytes moved, shape, 32-bit integer
+        instructions of the busier pipe) of B8 at the shapes the BabyBear prove of `asm`'s circuit at
+        2^log_n rows gives it: the leaf sponge of its widest oracle over
+        paired leaves (N/2 leaves of 2B words each), the node compression of
+        a tree's widest layer, and the bare permutation of as many states as
+        that oracle has leaves."""
+        N = (1 << log_n) * L
+        M = N // 2
+        tree, sel_paths = build_selector_tree(asm.gates)
+        Q = quotient_degree_for(asm, tree)
+        Ct = asm.num_copy_cols_total
+        chunks = chunk_columns(Ct, asm.geometry.max_allowed_constraint_degree)
+        ctx = stages_bb.SweepContext(asm, sel_paths, [1] * Ct, chunks)
+        lk = int(ctx.lookups)
+        widths = {"witness": Ct + ctx.W + lk,
+                  "setup": Ct + ctx.Kc + lk * (ctx.width + 1),
+                  "stage-2": 4 * len(chunks) + lk * 4 * (ctx.R + 1),
+                  "quotient": 4 * Q}
+        oracle, B = max(widths.items(), key=lambda kv: kv[1])
+        cols, layer, states = bb_rand(B, N), bb_rand(M, 8), bb_rand(M, 16)
+        perms_a_leaf = -(-2 * B // 8)
+        return [
+            ("poseidon2_bb_permute",
+             lambda: p2bb.poseidon2_permutation_bb(states),
+             lambda: p2bb.permutation_plain(states),
+             4 * 32 * M, f"({M}, 16) states", b8_ops(M, 32 * M)),
+            ("poseidon2_bb_leaf",
+             lambda: p2bb.leaf_hash_bb(cols, paired=True),
+             lambda: p2bb.leaf_hash_plain(cols, paired=True),
+             4 * (B * N + 8 * M), f"{oracle} oracle ({B}, {N}) -> {M} paired leaves",
+             b8_ops(M * perms_a_leaf, M * (8 * perms_a_leaf + 8))),
+            ("poseidon2_bb_node",
+             lambda: p2bb.node_layer_bb(layer),
+             lambda: p2bb.node_hash_plain(layer[0::2], layer[1::2]),
+             4 * (8 * M + 4 * M), f"({M}, 8) -> ({M // 2}, 8)", b8_ops(M // 2, 12 * M)),
+        ]
 
     def path_cases(asm, log_n, L):
         """(name, kernel call, plain call, bytes moved, shape) of each kernel
@@ -318,14 +403,18 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
                         nbytes, shape))
         return out
 
-    cases = [(name, None, path, kern, plain, nbytes, shape)
+    cases = [(name, None, path, kern, plain, nbytes, shape, None)
              for path, asm, log_n, cfg in paths
              for name, kern, plain, nbytes, shape in path_cases(asm, log_n,
                                                                  cfg.fri_lde_factor)]
-    cases += [("quotient_sweep", entry, path, kern, plain, nbytes, shape)
+    cases += [("quotient_sweep", entry, path, kern, plain, nbytes, shape, None)
               for entry, path, kern, plain, nbytes, shape in entry_cases()]
+    cases += [(name, None, path, kern, plain, nbytes, shape, int_ops)
+              for path, asm, log_n, cfg in bb_paths
+              for name, kern, plain, nbytes, shape, int_ops in bb_cases(asm, log_n,
+                                                                         cfg.fri_lde_factor)]
     rows = []
-    for name, entry, path, kern, plain, nbytes, shape in cases:
+    for name, entry, path, kern, plain, nbytes, shape, int_ops in cases:
         t0 = time.perf_counter()
         got = kern()
         with FieldOpCounter(gf) as ops:
@@ -336,7 +425,9 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
         ms = timed(torch, kern, 5)
         plain_ms = timed(torch, plain, 1, warm_up=False)  # warmed by the comparison
         bound_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-        bound_ops = ops.int_ops / int_ops_per_s * 1e3
+        # B8 counts its own operations: the plain version's are not the field
+        # primitives FieldOpCounter wraps
+        bound_ops = (ops.int_ops if int_ops is None else int_ops) / int_ops_per_s * 1e3
         lib, replaces = K.KERNELS[name]
         row = {
             "name": name,
@@ -362,10 +453,27 @@ def kernel_parity(torch, paths, int_ops_per_s: float) -> list:
     return rows
 
 
+def check_proof(label, asm, setup, proof) -> None:
+    """The port's check of a proof: the verifier for a Goldilocks proof; for
+    a BabyBear one (which has no verifier in the JAX package either) the
+    quotient identity at z from the proof's openings, the proof of work and
+    every query's Merkle paths against their caps."""
+    from boojum_tpu_torch.prover import verify
+    from boojum_tpu_torch.prover.prover_bb import query_paths_hold, quotient_identity_at_z
+
+    if asm.field == "babybear":
+        if not quotient_identity_at_z(asm, setup, proof):
+            raise AssertionError(f"{label}: the quotient identity at z fails")
+        if not query_paths_hold(asm, setup, proof):
+            raise AssertionError(f"{label}: a query's Merkle path or the proof of work fails")
+    elif not verify(setup.vk, proof, asm.gates):
+        raise AssertionError(f"{label}: proof rejected by the verifier")
+
+
 def card_against_cpu(torch, label, asm, cfg) -> float:
     """Set up and prove `asm` on the card and on the CPU: the same setup cap
-    and the same proof JSON text, accepted by the verifier."""
-    from boojum_tpu_torch.prover import generate_setup, prove, verify
+    and the same proof JSON text, accepted by the check."""
+    from boojum_tpu_torch.prover import generate_setup, prove
 
     t = time.perf_counter()
     s_gpu = generate_setup(asm, cfg, device="cuda")
@@ -376,8 +484,7 @@ def card_against_cpu(torch, label, asm, cfg) -> float:
     p_cpu = prove(asm, s_cpu, cfg, device="cpu")
     if p_gpu.to_json() != p_cpu.to_json():
         raise AssertionError(f"{label}: proofs differ between the card and the CPU")
-    if not verify(s_gpu.vk, p_gpu, asm.gates):
-        raise AssertionError(f"{label}: proof rejected")
+    check_proof(label, asm, s_gpu, p_gpu)
     secs = time.perf_counter() - t
     log(f"[4] {label}: card and CPU setups and proofs identical ({len(p_gpu.to_json())} "
         f"bytes), verified ({secs:.1f} s)")
@@ -391,9 +498,10 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
     takes the proof); the assembly must have 2^log_n rows, the size phase 3
     checked the kernels at. `streams` says whether the prover's rule must
     stream this path's commits: the absorb kernel then launches on the
-    prove, and otherwise never on the path."""
+    prove, and otherwise never on the path. A BabyBear path launches B8 and
+    no Goldilocks kernel; a Goldilocks path no B8."""
     from boojum_tpu_torch import kernels as K
-    from boojum_tpu_torch.prover import generate_setup, prove, verify
+    from boojum_tpu_torch.prover import generate_setup, prove
 
     K.reset_launches()
     t = time.perf_counter()
@@ -420,8 +528,7 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
         + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
         + f"; launches {on_prove}")
     t = time.perf_counter()
-    if not verify(setup.vk, proof, asm.gates):
-        raise AssertionError(f"{label}: proof rejected by the verifier")
+    check_proof(label, asm, setup, proof)
     if len(proof.queries) != cfg.num_queries or not proof.fri_caps:
         raise AssertionError(f"{label}: proof has the wrong shape")
     check_output(proof)
@@ -429,17 +536,71 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
     launches = dict(K.LAUNCHES)
     log(f"[{phase}] verified, output checked ({verify_s:.1f} s); launches on the "
         f"path {launches}")
-    # B4's bare permutation is on no prove: the absorb carries B4 there
-    expected = [k for k in K.KERNELS
-                if k != "poseidon2_permute" and (streams or k != "poseidon2_absorb")]
+    # the bare permutations of B4 and B8 are on no prove: the absorb and
+    # the leaf and node kernels carry them there
+    b8 = {k for k in K.KERNELS if k.startswith("poseidon2_bb")}
+    if asm.field == "babybear":
+        expected = ["poseidon2_bb_leaf", "poseidon2_bb_node"]
+        foreign = [k for k in K.KERNELS if k not in b8 and launches[k]]
+    else:
+        expected = [k for k in K.KERNELS if k not in b8 and k != "poseidon2_permute"
+                    and (streams or k != "poseidon2_absorb")]
+        foreign = [k for k in b8 if launches[k]]
     missing = [k for k in expected if launches[k] == 0 or on_prove[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the prove: {missing}")
+    if foreign:
+        raise AssertionError(f"{label}: the other field's kernels launched: {foreign}")
     if not streams and launches["poseidon2_absorb"]:
         raise AssertionError(f"{label}: the commits streamed below the threshold")
     return dict(asm=asm, setup=setup, launches=launches, launches_on_prove=on_prove,
                 synthesis_s=synth_s, setup_s=setup_s, prove_cold_s=prove_s,
                 rounds_cold_s=timings, verify_s=verify_s, peak_device_memory_gib=peak)
+
+
+def drive_mini_stark(torch, label, log_n, phase) -> dict:
+    """Phase 14: the BabyBear mini-STARK proved on the card with the launch
+    counts set to 0 just before and read after its verifier, which must
+    accept; B8's leaf and node kernels must have launched."""
+    from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch.prover.bb_prover import BBProofConfig, prove_babybear
+    from boojum_tpu_torch.prover.bb_verifier import check_babybear
+
+    cfg = BBProofConfig(log_n=log_n)
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    proof = prove_babybear(20260, cfg, device="cuda")
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ok, reason = check_babybear(proof)
+    verify_s = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    if not ok:
+        raise AssertionError(f"{label}: rejected by its verifier ({reason})")
+    missing = [k for k in ("poseidon2_bb_leaf", "poseidon2_bb_node") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the prove: {missing}")
+    t = time.perf_counter()
+    prove_babybear(20260, cfg, device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{phase}] {label}: prove {cold_s:.3f} s cold, {warm_s:.3f} s warm, peak device "
+        f"memory {peak:.2f} GiB, {cfg.num_folds} folds; verified ({verify_s:.1f} s); "
+        f"launches {launches}")
+    return dict(launches=launches, prove_cold_s=cold_s, prove_warm_s=warm_s,
+                verify_s=verify_s, peak_device_memory_gib=peak)
+
+
+def fma_chain_value(log_n: int, p: int) -> int:
+    """The fma chain's public input computed on the host: (a, b) -> (b, a·b + a)
+    from (1, 2), four steps a row over 2^log_n - 8 rows."""
+    a, b = 1, 2
+    for _ in range(((1 << log_n) - 8) * 4):
+        a, b = b, (a * b + a) % p
+    return b
 
 
 def stream_modes(torch, label, asm, setup, cfg) -> dict:
@@ -547,8 +708,9 @@ def main() -> int:
         build_zero_check_witness, fma_proof_config, sha256_proof_config,
         small_proof_config, xor_lookup_proof_config,
     )
+    from boojum_tpu_torch.field.spec import BABYBEAR
     from boojum_tpu_torch.gadgets import sha256_digest_bytes
-    from boojum_tpu_torch.prover import prove
+    from boojum_tpu_torch.prover import ProofConfig, prove
 
     t0 = time.perf_counter()
     card = nvidia_smi("name,power.limit")
@@ -570,13 +732,18 @@ def main() -> int:
     asm_abc = cs_abc.into_assembly()
     asm_gen = build_general_lookup()[0].into_assembly()
     asm_wit = build_zero_check_witness()[0].into_assembly()
+    asm_bb_fma = build_fma(10, field="babybear").into_assembly()
+    asm_bb_xor = build_xor_lookup(600, 1 << 11, field="babybear")[0].into_assembly()
     log(f"[3] kernels against their plain versions at the {FMA_PATH}, {SHA_PATH}, "
-        f"{GEN_PATH} and {WIT_PATH} proves' shapes")
+        f"{GEN_PATH}, {WIT_PATH}, {BB_FMA_PATH} and {BB_XOR_PATH} proves' shapes")
     rows = kernel_parity(torch, [
         (FMA_PATH, asm10, LOG_N, fma_proof_config()),
         (SHA_PATH, asm_abc, SHA_LOG_N, sha256_proof_config()),
         (GEN_PATH, asm_gen, LOG_N, sha256_proof_config()),
         (WIT_PATH, asm_wit, LOG_N, sha256_proof_config()),
+    ], [
+        (BB_FMA_PATH, asm_bb_fma, LOG_N, fma_proof_config()),
+        (BB_XOR_PATH, asm_bb_xor, LOG_N, sha256_proof_config()),
     ], int_ops_per_s)
     log(f"[3] all {len(rows)} rows word-exact ({time.perf_counter() - t:.1f} s)")
 
@@ -592,6 +759,10 @@ def main() -> int:
         "witness columns 2^5": card_against_cpu(
             torch, "witness columns 2^5", asm_wit, small_proof_config()),
     }
+    # the JAX package's tests/test_bb_full_prover.py config
+    bb_small_cfg = ProofConfig(fri_lde_factor=2, num_queries=8, fri_final_degree=8)
+    for label, asm in (("babybear fma 2^10", asm_bb_fma), ("babybear xor4 2^10", asm_bb_xor)):
+        small[label] = card_against_cpu(torch, label, asm, bb_small_cfg)
     if sha256_digest_bytes(cs_abc, digest_abc) != hashlib.sha256(b"abc").digest():
         raise AssertionError("sha256(b'abc') circuit digest is wrong")
 
@@ -667,6 +838,48 @@ def main() -> int:
         run.pop("setup", None)
         profiles.append(prof)
         paths[label] = run["launches"]
+    # the BabyBear prover: the fma chain (fma config) and the xor4 lookup
+    # circuit (sha256's config) at 2^20 rows, then the mini-STARK
+    xor_steps = (1 << LOG_N) - 8  # two lookup rows a step over R = 2 columns
+
+    def bb_fma():
+        want = fma_chain_value(LOG_N, BABYBEAR.p)
+
+        def check(proof):
+            if proof.public_inputs != [want]:
+                raise AssertionError(f"{BB_FMA_PATH}: public input {proof.public_inputs} "
+                                     f"differs from the host's {want}")
+
+        return build_fma(LOG_N, field="babybear").into_assembly(), check
+
+    def bb_xor():
+        cs, acc, _out = build_xor_lookup(xor_steps, 1 << LOG_N, field="babybear")
+        want = cs.get_value(acc)
+
+        def check(proof):
+            if proof.public_inputs != [want]:
+                raise AssertionError(f"{BB_XOR_PATH}: public input {proof.public_inputs} "
+                                     f"differs from the host's {want}")
+
+        return cs.into_assembly(), check
+
+    for phase, label, synth, cfg in ((12, BB_FMA_PATH, bb_fma, fma_proof_config()),
+                                     (13, BB_XOR_PATH, bb_xor, sha256_proof_config())):
+        run = drive_path(torch, label, synth, cfg, LOG_N, phase, False)
+        t = time.perf_counter()
+        prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
+        prof.update(circuit=label, card=card, **{
+            k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s", "rounds_cold_s",
+                                "verify_s", "peak_device_memory_gib", "launches_on_prove")})
+        log(f"[{phase}] warm prove {prof['prove_warm_s']:.3f} s, device busy "
+            f"{prof['device_busy_ms']:.1f} ms, idle share "
+            f"{prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
+        del run["asm"], run["setup"]
+        profiles.append(prof)
+        paths[label] = run["launches"]
+    mini = drive_mini_stark(torch, BB_MINI_PATH, LOG_N, 14)
+    paths[BB_MINI_PATH] = mini.pop("launches")
+    profiles.append(dict(circuit=BB_MINI_PATH, card=card, **mini))
     for prof in profiles:
         print(json.dumps({"profile": prof}))
 

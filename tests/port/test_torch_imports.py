@@ -41,6 +41,11 @@ def test_every_module_imports_without_jax_or_boojum_tpu():
     assert {"boojum_tpu_torch.cs.lookup_table", "boojum_tpu_torch.gadgets.tables",
             "boojum_tpu_torch.gadgets.chunk_utils", "boojum_tpu_torch.gadgets.sha256",
             "boojum_tpu_torch.circuits"} <= set(MODULES)
+    # and the BabyBear slice's
+    assert {"boojum_tpu_torch.field.babybear", "boojum_tpu_torch.hashes.poseidon2_bb",
+            "boojum_tpu_torch.ntt.bb_ntt", "boojum_tpu_torch.prover.prover_bb",
+            "boojum_tpu_torch.prover.bb_prover", "boojum_tpu_torch.prover.bb_verifier",
+            "boojum_tpu_torch.prover.stages_bb"} <= set(MODULES)
 
 
 def test_sources_name_no_jax_import():

@@ -2,7 +2,8 @@
 the card, word for word (tolerance 0), the quotient sweep in every layout
 and through its standalone entries, and the fma 2^10, xor4 lookup 2^9,
 general-lookup 2^9 and witness-column 2^5 proofs identical on the card and
-the CPU, materialized and streamed. Marked `cuda`: they skip where no card is present and run on the
+the CPU, materialized and streamed; kernel B8 (BabyBear Poseidon2) and the
+BabyBear fma, xor4 and mini-STARK proofs at 2^10 likewise. Marked `cuda`: they skip where no card is present and run on the
 card with `python -m pytest tests/port/test_torch_kernels.py`."""
 
 import numpy as np
@@ -208,3 +209,58 @@ def test_streamed_proof_on_card_matches_cpu(dev, circuit):
     p_cpu = prove(asm, generate_setup(asm, cfg, device="cpu"), cfg, device="cpu")
     assert p_gpu.to_json() == p_cpu.to_json()
     assert verify(s_gpu.vk, p_gpu, asm.gates)
+
+
+def _bb_rand(rng, *shape, device):
+    from boojum_tpu_torch.field import babybear as bb
+
+    return bb.from_numpy(rng.integers(0, bb.P, size=shape, dtype=np.uint64), device)
+
+
+@pytest.mark.parametrize("width", [1, 8, 9, 44])
+def test_poseidon2_bb_kernels_match_plain(dev, width):
+    """Kernel B8: the permutation (all-zero and all-(p-1) rows included), the
+    leaf sponge over plain and paired leaves, and the node compression."""
+    from boojum_tpu_torch.field import babybear as bb
+    from boojum_tpu_torch.hashes import poseidon2_bb as p2bb
+
+    rng = np.random.default_rng(200 + width)
+    states = _bb_rand(rng, 1000, 16, device=dev)
+    states[0] = 0
+    states[1] = bb.P - 1
+    assert torch.equal(p2bb.poseidon2_permutation_bb(states), p2bb.permutation_plain(states))
+    cols = _bb_rand(rng, width, 1000, device=dev)
+    assert torch.equal(p2bb.leaf_hash_bb(cols), p2bb.leaf_hash_plain(cols))
+    assert torch.equal(p2bb.leaf_hash_bb(cols, paired=True),
+                       p2bb.leaf_hash_plain(cols, paired=True))
+    layer = _bb_rand(rng, 1024, 8, device=dev)
+    assert torch.equal(p2bb.node_layer_bb(layer),
+                       p2bb.node_hash_plain(layer[0::2], layer[1::2]))
+
+
+@pytest.mark.parametrize("circuit", ["fma", "xor4", "mini"])
+def test_babybear_proof_identical_on_card_and_cpu(dev, circuit):
+    from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch.prover import ProofConfig
+    from boojum_tpu_torch.prover.bb_prover import BBProofConfig, prove_babybear
+    from boojum_tpu_torch.prover.bb_verifier import verify_babybear
+    from boojum_tpu_torch.prover.prover_bb import query_paths_hold, quotient_identity_at_z
+
+    K.reset_launches()
+    if circuit == "mini":
+        p_gpu = prove_babybear(12345, BBProofConfig(log_n=10), device=dev)
+        assert p_gpu == prove_babybear(12345, BBProofConfig(log_n=10), device="cpu")
+        assert verify_babybear(p_gpu)
+    else:
+        cs = (build_fma(10, field="babybear") if circuit == "fma"
+              else build_xor_lookup(600, 1 << 11, field="babybear")[0])
+        asm = cs.into_assembly()
+        cfg = ProofConfig(fri_lde_factor=2, num_queries=8, fri_final_degree=8)
+        s_gpu = generate_setup(asm, cfg, device=dev)
+        p_gpu = prove(asm, s_gpu, cfg, device=dev)
+        s_cpu = generate_setup(asm, cfg, device="cpu")
+        assert s_gpu.vk.setup_merkle_cap == s_cpu.vk.setup_merkle_cap
+        assert p_gpu.to_json() == prove(asm, s_cpu, cfg, device="cpu").to_json()
+        assert quotient_identity_at_z(asm, s_gpu, p_gpu)
+        assert query_paths_hold(asm, s_gpu, p_gpu)
+    assert K.LAUNCHES["poseidon2_bb_leaf"] > 0 and K.LAUNCHES["poseidon2_bb_node"] > 0
