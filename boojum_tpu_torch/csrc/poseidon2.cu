@@ -11,15 +11,26 @@
 // because the TPU vector unit has no 64-bit multiply; here one thread holds
 // one state's 12 words in registers and multiplies 64-bit words directly.
 //
-// What bounds it on the H100: integer operations. A permutation is 736 field
-// multiplies (4 for each of the 8*12 + 22 S-boxes, 12 for each of the 22
-// internal layers) and several hundred adds; a leaf of 16 words reads 128
-// bytes for two permutations, and a bare permutation reads and writes 192,
-// so the multiply rate, not memory, is the limit. The design keeps the whole
-// state in registers, reads a column-major (B, N) stack so that neighbouring
-// threads read neighbouring words, and keeps the round constants and the
-// internal diagonal in __constant__ memory, where every thread of a warp
-// reads the same word at once.
+// What bounds it on the H100: integer operations. A permutation makes 472
+// general products (4 for each of the 8*12 + 22 S-boxes); a leaf of 16
+// words reads 128 bytes for two permutations and a bare permutation reads
+// and writes 192, so the issue rate, not memory, is the limit. The design
+// spends it on the products alone:
+// - the internal layer (all-ones + diag(2^d), 22 times) multiplies by
+//   powers of two whose exponents kDiagLog bakes in: s_i * 2^d_i is a shift
+//   into a 96-bit accumulator (s_i * 2^14 + the state's sum < 2^78 + 12 *
+//   2^64), and each word is reduced once;
+// - the external layer circ(2*M4, M4, M4) is M4 (x_b + t), t the sum of
+//   the three blocks, on 96-bit accumulators (below 16 * 4 * 2^64 = 2^70),
+//   reduced once per word instead of a chain of canonicalising adds;
+// - values stay below 2^64 but need not be canonical (lazy) between
+//   operations inside the permutation: the S-box products, the layers'
+//   outputs, and the round constant, which each layer adds into its
+//   accumulator before the reduction. Only the last layer's output, the
+//   state a kernel stores, is made canonical.
+// The state is read from a column-major (B, N) stack, so that neighbouring
+// threads read neighbouring words; the round constants sit in __constant__
+// memory, where every thread of a warp reads the same word at once.
 //
 // The absorb fuses what the JAX package runs as one permutation launch per 8
 // columns: one launch takes a whole (b, N) column block, loads the carried
@@ -31,66 +42,111 @@
 namespace {
 
 __constant__ uint64_t kRC[30 * 12];
-__constant__ uint64_t kDiag[12];
 
+// The internal diagonal M_I_DIAGONAL (hashes/poseidon2_params.py) is
+// 2^kDiagLog[i].
+constexpr int kDiagLog[12] = {4, 14, 11, 8, 0, 5, 2, 9, 13, 6, 3, 12};
+
+// x^7 for any x < 2^64; lazy.
 __device__ __forceinline__ uint64_t sbox7(uint64_t x) {
-  const uint64_t x2 = gl::mul(x, x);
-  const uint64_t x3 = gl::mul(x2, x);
-  const uint64_t x4 = gl::mul(x2, x2);
-  return gl::mul(x4, x3);
+  const uint64_t x2 = gl::mul_lazy(x, x);
+  const uint64_t x3 = gl::mul_lazy(x2, x);
+  const uint64_t x4 = gl::mul_lazy(x2, x2);
+  return gl::mul_lazy(x4, x3);
+}
+
+// What a layer adds to its outputs before reducing them: the next full
+// round's constants (all lanes), the next partial round's (lane 0), or none,
+// when the output is the permutation's and must be canonical.
+enum Next { kFull, kLane0, kNone };
+
+template <Next N>
+__device__ __forceinline__ uint64_t finish(gl::W y, int next, int i) {
+  if (N == kFull || (N == kLane0 && i == 0)) y = gl::wadd(y, gl::wide(kRC[next * 12 + i]));
+  return N == kNone ? gl::reduce_w(y) : gl::reduce_w_lazy(y);
 }
 
 // M4 = [[5,7,1,3],[4,6,1,1],[1,3,5,7],[1,1,4,6]] by an add/double chain.
-__device__ __forceinline__ void block_m4(uint64_t* x) {
-  const uint64_t t0 = gl::add(x[0], x[1]);
-  const uint64_t t1 = gl::add(x[2], x[3]);
-  const uint64_t t2 = gl::add(gl::dbl(x[1]), t1);
-  const uint64_t t3 = gl::add(gl::dbl(x[3]), t0);
-  const uint64_t t4 = gl::add(gl::dbl(gl::dbl(t1)), t3);
-  const uint64_t t5 = gl::add(gl::dbl(gl::dbl(t0)), t2);
-  x[0] = gl::add(t3, t5);
+__device__ __forceinline__ void block_m4(gl::W* x) {
+  const gl::W t0 = gl::wadd(x[0], x[1]);
+  const gl::W t1 = gl::wadd(x[2], x[3]);
+  const gl::W t2 = gl::wadd(gl::wadd(x[1], x[1]), t1);
+  const gl::W t3 = gl::wadd(gl::wadd(x[3], x[3]), t0);
+  const gl::W t1x2 = gl::wadd(t1, t1), t0x2 = gl::wadd(t0, t0);
+  const gl::W t4 = gl::wadd(gl::wadd(t1x2, t1x2), t3);
+  const gl::W t5 = gl::wadd(gl::wadd(t0x2, t0x2), t2);
+  x[0] = gl::wadd(t3, t5);
   x[1] = t5;
-  x[2] = gl::add(t2, t4);
+  x[2] = gl::wadd(t2, t4);
   x[3] = t4;
 }
 
-// circ(2*M4, M4, M4)
-__device__ __forceinline__ void external_mds(uint64_t* s) {
-  block_m4(s);
-  block_m4(s + 4);
-  block_m4(s + 8);
+// circ(2*M4, M4, M4) = M4 (x_b + t) on block b, t = x_0 + x_1 + x_2; then
+// the constants of round `next` (see Next) and one reduction a word.
+template <Next N>
+__device__ __forceinline__ void external_mds(uint64_t* s, int next) {
+  gl::W z[12];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const uint64_t sum = gl::add(gl::add(s[i], s[4 + i]), s[8 + i]);
-    s[i] = gl::add(s[i], sum);
-    s[4 + i] = gl::add(s[4 + i], sum);
-    s[8 + i] = gl::add(s[8 + i], sum);
+    const gl::W t = gl::wadd(gl::wadd(gl::wide(s[i]), gl::wide(s[4 + i])), gl::wide(s[8 + i]));
+#pragma unroll
+    for (int b = 0; b < 3; ++b) z[4 * b + i] = gl::wadd(gl::wide(s[4 * b + i]), t);
   }
+#pragma unroll
+  for (int b = 0; b < 3; ++b) block_m4(z + 4 * b);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s[i] = finish<N>(z[i], next, i);
 }
 
-// all-ones + diag(d)
-__device__ __forceinline__ void internal_mds(uint64_t* s) {
-  uint64_t total = s[0];
-#pragma unroll
-  for (int i = 1; i < 12; ++i) total = gl::add(total, s[i]);
-#pragma unroll
-  for (int i = 0; i < 12; ++i) s[i] = gl::add(gl::mul(s[i], kDiag[i]), total);
+// all-ones + diag(2^d): s_i * 2^d_i + sum(s), then round `next`'s constants.
+template <int I>
+__device__ __forceinline__ gl::W shifted(uint64_t v) {
+  return gl::wshl<kDiagLog[I]>(v);
 }
 
-__device__ __forceinline__ void full_round(uint64_t* s, int r) {
+template <Next N>
+__device__ __forceinline__ void internal_mds(uint64_t* s, int next) {
+  gl::W total = gl::wide(s[0]);
 #pragma unroll
-  for (int i = 0; i < 12; ++i) s[i] = sbox7(gl::add(s[i], kRC[r * 12 + i]));
-  external_mds(s);
+  for (int i = 1; i < 12; ++i) total = gl::wadd(total, gl::wide(s[i]));
+  const gl::W y[12] = {
+      gl::wadd(shifted<0>(s[0]), total), gl::wadd(shifted<1>(s[1]), total),
+      gl::wadd(shifted<2>(s[2]), total), gl::wadd(shifted<3>(s[3]), total),
+      gl::wadd(shifted<4>(s[4]), total), gl::wadd(shifted<5>(s[5]), total),
+      gl::wadd(shifted<6>(s[6]), total), gl::wadd(shifted<7>(s[7]), total),
+      gl::wadd(shifted<8>(s[8]), total), gl::wadd(shifted<9>(s[9]), total),
+      gl::wadd(shifted<10>(s[10]), total), gl::wadd(shifted<11>(s[11]), total)};
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s[i] = finish<N>(y[i], next, i);
 }
 
+__device__ __forceinline__ void sbox_all(uint64_t* s) {
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s[i] = sbox7(s[i]);
+}
+
+// s canonical in, canonical out. Each layer adds the next round's
+// constants, so a round is its S-boxes and its linear layer.
 __device__ void permute(uint64_t* s) {
-  external_mds(s);
-  for (int r = 0; r < 4; ++r) full_round(s, r);
-  for (int r = 4; r < 26; ++r) {
-    s[0] = sbox7(gl::add(s[0], kRC[r * 12]));
-    internal_mds(s);
+  external_mds<kFull>(s, 0);
+  for (int r = 0; r < 3; ++r) {
+    sbox_all(s);
+    external_mds<kFull>(s, r + 1);
   }
-  for (int r = 26; r < 30; ++r) full_round(s, r);
+  sbox_all(s);
+  external_mds<kLane0>(s, 4);
+  for (int r = 4; r < 25; ++r) {
+    s[0] = sbox7(s[0]);
+    internal_mds<kLane0>(s, r + 1);
+  }
+  s[0] = sbox7(s[0]);
+  internal_mds<kFull>(s, 26);
+  for (int r = 26; r < 29; ++r) {
+    sbox_all(s);
+    external_mds<kFull>(s, r + 1);
+  }
+  sbox_all(s);
+  external_mds<kNone>(s, 0);
 }
 
 // One thread per leaf: absorb the leaf's B words (column-major stack, column
@@ -167,13 +223,10 @@ constexpr int kThreads = 128;
 
 }  // namespace
 
-// Round constants (30 x 12) and the internal diagonal (12), host arrays;
-// copied to the current device's constant memory.
-extern "C" cudaError_t bt_poseidon2_set_constants(const uint64_t* rc,
-                                                  const uint64_t* diag) {
-  cudaError_t e = cudaMemcpyToSymbol(kRC, rc, sizeof(kRC));
-  if (e != cudaSuccess) return e;
-  return cudaMemcpyToSymbol(kDiag, diag, sizeof(kDiag));
+// Round constants (30 x 12), a host array; copied to the current device's
+// constant memory.
+extern "C" cudaError_t bt_poseidon2_set_constants(const uint64_t* rc) {
+  return cudaMemcpyToSymbol(kRC, rc, sizeof(kRC));
 }
 
 extern "C" cudaError_t bt_poseidon2_leaf_hash(const uint64_t* cols, int B,

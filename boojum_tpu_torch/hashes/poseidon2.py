@@ -131,12 +131,9 @@ def _library(dev: torch.device):
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _constants_set:
         rc = np.array(params.ALL_ROUND_CONSTANTS, dtype=np.uint64)
-        diag = np.array(params.M_I_DIAGONAL, dtype=np.uint64)
         with torch.cuda.device(idx):
             K.check(
-                lib.bt_poseidon2_set_constants(
-                    rc.ctypes.data_as(K._P), diag.ctypes.data_as(K._P)
-                ),
+                lib.bt_poseidon2_set_constants(rc.ctypes.data_as(K._P)),
                 "poseidon2 constants",
             )
         _constants_set.add(idx)

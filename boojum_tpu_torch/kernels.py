@@ -80,13 +80,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U64 = ctypes.c_uint64
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "ntt": {
-        "bt_ntt_forward": (_P, _P, _P, _I, _P, _I, _LL, _P),
+        # in, out, scale, L, heap, post, plan, passes, log_n, rows, stream
+        "bt_ntt_forward": (_P, _P, _P, _I, _P, _P, _IP, _I, _I, _LL, _P),
         "bt_ntt_inverse": (_P, _P, _P, _I, _LL, _U64, _P),
     },
     "poseidon2": {
-        "bt_poseidon2_set_constants": (_P, _P),
+        "bt_poseidon2_set_constants": (_P,),
         "bt_poseidon2_leaf_hash": (_P, _I, _LL, _P, _P),
         "bt_poseidon2_node_hash": (_P, _LL, _P, _P),
         "bt_poseidon2_permute": (_P, _LL, _P, _P),
@@ -195,6 +197,11 @@ def check(err: int, what: str) -> None:
 
 def ptr(t: torch.Tensor | None):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def int_array(values):
+    """A C int array of `values`, for an argument declared int*."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def stream(device: torch.device):

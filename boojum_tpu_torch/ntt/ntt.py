@@ -13,7 +13,8 @@ _fwd_kernel, _inv_kernel and _fwd_scaled_kernel) carry
 `fft_natural_to_bitreversed`, `ifft_bitreversed_to_natural` and
 `lde_from_monomial`: a CUDA tensor launches the kernel at every size, a CPU
 tensor runs the plain butterfly stages below, which mirror the JAX
-package's dif_stages / dit_stages.
+package's dif_stages / dit_stages. The forward kernel runs in the passes
+of `forward_pass_plan`, with the twiddle tables `_forward_tables` builds.
 """
 
 from __future__ import annotations
@@ -129,17 +130,69 @@ def lde_plain(coeffs, scale):
 # ---------------------------------------------------------------------------
 
 
+# The forward kernel's passes (csrc/ntt.cu): strided passes of at most 10
+# index bits, a last pass of at most 11 over contiguous words.
+MAX_STRIDED_PASS = 10
+MAX_LAST_PASS = 11
+
+
+def forward_pass_plan(log_n: int) -> tuple[int, ...]:
+    """Index bits of each pass of the forward kernel, first (the top bits)
+    to last: one pass up to 2^11, two up to 2^21 (2^20: 9 + 11), three up
+    to 2^31; the last pass at most 11 bits, the others at most 10 and as
+    even as those limits allow."""
+    if log_n <= MAX_LAST_PASS:
+        return (log_n,)
+    passes = 2 if log_n <= MAX_LAST_PASS + MAX_STRIDED_PASS else (
+        1 + -(-(log_n - MAX_LAST_PASS) // MAX_STRIDED_PASS))
+    last = min(MAX_LAST_PASS, max(-(-log_n // passes), log_n - 9 * (passes - 1)))
+    rest, m = log_n - last, passes - 1
+    return tuple(rest // m + (i < rest % m) for i in range(m)) + (last,)
+
+
+def _four_step_twiddles(ctx: NTTContext, lo: int, k: int) -> torch.Tensor:
+    """The twiddles a strided pass of k bits over columns 2^lo words apart
+    multiplies in at its store, laid out like the data of one 2^(lo + k)
+    block: entry q * 2^lo + c = omega_M^(c * bitrev_k(q)), M = 2^(lo + k)."""
+    dev = ctx.tw.device
+    rev = bitreverse_indices(k, dev)
+    cols = torch.arange(1 << lo, dtype=torch.int64, device=dev)
+    e = (rev[:, None] * cols[None, :]) % (1 << (lo + k))
+    y = (e << (ctx.log_n - lo - k)).reshape(-1)  # omega_n^y, y < n
+    half = ctx.n // 2
+    w = ctx.tw[y % half]
+    return torch.where(y >= half, gf.neg(w), w)
+
+
+@lru_cache(maxsize=8)
+def _forward_tables(log_n: int, device: str):
+    """(plan, heap, post) of the forward kernel at size 2^log_n: heap[2^(k-1)
+    + j] = omega_{2^k}^j for each pass size k; post the strided passes'
+    four-step twiddles, one table after another."""
+    ctx = get_ntt_context(log_n, device)
+    plan = forward_pass_plan(log_n)
+    heap = torch.zeros(1 << MAX_LAST_PASS, dtype=torch.int64, device=ctx.tw.device)
+    for k in set(plan):
+        heap[1 << (k - 1) : 1 << k] = ctx.tw[:: 1 << (log_n - k)][: 1 << (k - 1)]
+    posts, lo = [], log_n
+    for k in plan[:-1]:
+        lo -= k
+        posts.append(_four_step_twiddles(ctx, lo, k))
+    post = torch.cat(posts) if posts else heap[:1]
+    return plan, heap, post
+
+
 def _forward_launch(name, src, scale, L, log_n, rows_out):
     dev = src.device
-    ctx = get_ntt_context(log_n, dev)
+    plan, heap, post = _forward_tables(log_n, str(dev))
     out = torch.empty((rows_out, 1 << log_n), dtype=torch.int64, device=dev)
     lib = K.library("ntt")
     with torch.cuda.device(dev):
         K.count(name)
         K.check(
             lib.bt_ntt_forward(
-                K.ptr(src), K.ptr(out), K.ptr(scale), L, K.ptr(ctx.tw),
-                log_n, rows_out, K.stream(dev),
+                K.ptr(src), K.ptr(out), K.ptr(scale), L, K.ptr(heap), K.ptr(post),
+                K.int_array(plan), len(plan), log_n, rows_out, K.stream(dev),
             ),
             name,
         )
@@ -225,6 +278,13 @@ def lde_from_monomial(coeffs: torch.Tensor, lde_factor: int) -> torch.Tensor:
     out = _forward_launch("ntt_lde", coeffs, scale, lde_factor, log_n,
                           B * lde_factor)
     return out.reshape(B, lde_factor, n)
+
+
+def clear_tables() -> None:
+    """Drop the cached twiddle, coset-scale and pass tables, which hold device
+    memory (a 2^23-point LDE into 8 cosets caches 640 MiB)."""
+    for cached in (_ntt_context, _forward_tables, _lde_scale, _powers_dev):
+        cached.cache_clear()
 
 
 # ---------------------------------------------------------------------------

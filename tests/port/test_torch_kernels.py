@@ -41,15 +41,21 @@ def _same(a, b):
     np.testing.assert_array_equal(gf.to_numpy(a), gf.to_numpy(b))
 
 
-@pytest.mark.parametrize("log_n", [1, 5, 11, 12, 16])
-def test_ntt_kernels_match_plain(dev, log_n):
+@pytest.mark.parametrize("L", [1, 4, 8])
+@pytest.mark.parametrize("log_n", [1, 5, 11, 12, 16, 17, 20, 21, 22, 23])
+def test_ntt_kernels_match_plain(dev, log_n, L):
+    """B1-B3 against their plain versions at the sizes where the forward
+    kernel's pass plan changes (one pass up to 2^11, two up to 2^21, three
+    beyond), each with a coset scale row and an LDE into L cosets."""
     rng = np.random.default_rng(log_n)
-    a = _rand(rng, 3, 1 << log_n, device=dev)
-    _same(ntt.fft_natural_to_bitreversed(a), ntt.fft_plain(a))
-    _same(ntt.ifft_bitreversed_to_natural(a), ntt.ifft_plain(a))
-    row = ntt.lde_scale_rows(log_n, 4, dev)[3]
+    a = _rand(rng, 3 if log_n <= 20 else 2, 1 << log_n, device=dev)
+    scale = ntt.lde_scale_rows(log_n, L, dev)
+    row = scale[L - 1]
     _same(ntt.fft_natural_to_bitreversed(a, row), ntt.fft_plain(a, row))
-    _same(ntt.lde_from_monomial(a, 4), ntt.lde_plain(a, ntt.lde_scale_rows(log_n, 4, dev)))
+    _same(ntt.lde_from_monomial(a, L), ntt.lde_plain(a, scale))
+    if L == 1:
+        _same(ntt.fft_natural_to_bitreversed(a), ntt.fft_plain(a))
+        _same(ntt.ifft_bitreversed_to_natural(a), ntt.ifft_plain(a))
 
 
 @pytest.mark.parametrize("width", [1, 8, 9, 16, 22])
@@ -61,14 +67,28 @@ def test_poseidon2_kernels_match_plain(dev, width):
     _same(p2.node_hash(layer), p2.node_hash_plain(layer))
 
 
+def _filled(rng, fill, *shape, device):
+    """Words of one kind: random canonical, p - 1, 0, or at least 2^63."""
+    if fill == "random":
+        return _rand(rng, *shape, device=device)
+    if fill == "high":
+        w = rng.integers(1 << 63, gf.P, size=shape, dtype=np.uint64)
+        return gf.from_numpy(w, device)
+    v = gf.P - 1 if fill == "p-1" else 0
+    return gf.from_numpy(np.full(shape, v, dtype=np.uint64), device)
+
+
+@pytest.mark.parametrize("fill", ["random", "p-1", "zero", "high"])
+@pytest.mark.parametrize("N", [1000, 4097])
 @pytest.mark.parametrize("b", [1, 8, 13, 32])
-def test_poseidon2_permute_and_absorb_match_plain(dev, b):
+def test_poseidon2_permute_and_absorb_match_plain(dev, b, N, fill):
     """Kernel B4: the bare permutation, and the absorb of a (b, N) block into
-    carried states in place, against their plain versions."""
+    carried states in place, against their plain versions, for N not a
+    multiple of the block size and states of boundary words."""
     rng = np.random.default_rng(100 + b)
-    state = _rand(rng, 1000, 12, device=dev)
+    state = _filled(rng, fill, N, 12, device=dev)
     _same(p2.poseidon2_permutation(state), p2.permutation_plain(state))
-    cols = _rand(rng, b, 1000, device=dev)
+    cols = _filled(rng, fill, b, N, device=dev)
     got = p2.absorb_cols(state.clone(), cols)
     _same(got, p2.absorb_cols_plain(state.clone(), cols))
 
