@@ -54,17 +54,58 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
 
 __device__ __forceinline__ uint64_t neg(uint64_t a) { return a ? P - a : 0; }
 
-// hi*2^64 + lo reduced to a word < 2^64 that need not be canonical (lazy):
-// any later multiply, wide sum or reduce accepts it.
-__device__ __forceinline__ uint64_t reduce128_lazy(uint64_t hi, uint64_t lo) {
-  const uint64_t hi_hi = hi >> 32;
-  const uint64_t hi_lo = hi & EPS;
+// lo + hi_lo*2^64 + hi_hi*2^96 = lo + hi_lo*eps - hi_hi (mod p), for hi_lo
+// < 2^32 and hi_hi < 2^63, lazy.
+__device__ __forceinline__ uint64_t fold_lazy(uint64_t hi_hi, uint64_t hi_lo, uint64_t lo) {
   uint64_t t0 = lo - hi_hi;
-  if (lo < hi_hi) t0 -= EPS;  // borrow: -2^64 = -eps
+  if (lo < hi_hi) t0 -= EPS;  // borrow: -2^64 = -eps, and t0 >= 2^64 - hi_hi > eps
   const uint64_t t1 = hi_lo * EPS;  // < 2^64
   uint64_t t2 = t0 + t1;
   if (t2 < t0) t2 += EPS;  // t0 + t1 - 2^64 < t1 <= 2^64 - 2^33 + 1: no second carry
   return t2;
+}
+
+// hi*2^64 + lo reduced to a word < 2^64 that need not be canonical (lazy):
+// any later multiply, wide sum or reduce accepts it.
+__device__ __forceinline__ uint64_t reduce128_lazy(uint64_t hi, uint64_t lo) {
+  return fold_lazy(hi >> 32, hi & EPS, lo);
+}
+
+// A sum of 128-bit products and words, lo + hi*2^64 + k*2^128 (k counts
+// the carries out of 128 bits: fewer than 2^31 terms), reduced once:
+// 2^128 = -2^32 (mod p), so k joins hi's top half.
+struct Acc {
+  uint64_t lo, hi;
+  uint32_t k;
+};
+
+__device__ __forceinline__ Acc prod(uint64_t a, uint64_t b) {
+  return {a * b, __umul64hi(a, b), 0u};
+}
+
+// a + (lo + hi*2^64)
+__device__ __forceinline__ Acc acc_add(Acc a, uint64_t lo, uint64_t hi) {
+  Acc r;
+  asm("add.cc.u64 %0, %3, %6;\n\t"
+      "addc.cc.u64 %1, %4, %7;\n\t"
+      "addc.u32 %2, %5, 0;"
+      : "=l"(r.lo), "=l"(r.hi), "=r"(r.k)
+      : "l"(a.lo), "l"(a.hi), "r"(a.k), "l"(lo), "l"(hi));
+  return r;
+}
+
+__device__ __forceinline__ Acc acc_mac(Acc a, uint64_t x, uint64_t y) {
+  return acc_add(a, x * y, __umul64hi(x, y));
+}
+
+__device__ __forceinline__ Acc acc_sum(Acc a, Acc b) {
+  Acc r = acc_add(a, b.lo, b.hi);
+  r.k += b.k;
+  return r;
+}
+
+__device__ __forceinline__ uint64_t reduce_acc_lazy(Acc a) {
+  return fold_lazy((a.hi >> 32) + (uint64_t(a.k) << 32), a.hi & EPS, a.lo);
 }
 
 __device__ __forceinline__ uint64_t canonical(uint64_t a) { return a >= P ? a - P : a; }
@@ -82,6 +123,30 @@ __device__ __forceinline__ uint64_t dbl(uint64_t a) { return add(a, a); }
 // a * b for any a, b < 2^64, lazy.
 __device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
   return reduce128_lazy(__umul64hi(a, b), a * b);
+}
+
+// a + b for any a, b < 2^64, lazy: a carry out of 64 bits drops 2^64 = eps
+// (mod p), so eps goes back in; that can carry once more, and then the word
+// is below eps - 1, so a second eps cannot.
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  uint64_t s = a + b;
+  if (s < a) {
+    s += EPS;
+    if (s < EPS) s += EPS;
+  }
+  return s;
+}
+
+// a - b for any a, b < 2^64, lazy: a borrow adds 2^64 = eps (mod p), so eps
+// comes off; that borrows once more only when b - a > p (b not canonical),
+// and then the word is at least 2^64 - eps, so a second eps cannot.
+__device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
+  uint64_t d = a - b;
+  if (a < b) {
+    const uint64_t e = d - EPS;
+    d = d < EPS ? e - EPS : e;
+  }
+  return d;
 }
 
 // A 96-bit accumulator w0 + w1*2^32 + w2*2^64, for sums of words < 2^64 with
@@ -113,6 +178,14 @@ __device__ __forceinline__ W wshl(uint64_t a) {
     const uint64_t lo = a << D;
     return {uint32_t(lo), uint32_t(lo >> 32), uint32_t(a >> (64 - D))};
   }
+}
+
+// a * c as a wide value, c < 2^32: a c = lo + hi*2^32 with lo = a_lo c and
+// hi = a_hi c, and (lo >> 32) + hi <= 2^32 - 1 + (2^32 - 1)^2 < 2^64.
+__device__ __forceinline__ W wmul32(uint64_t a, uint32_t c) {
+  const uint64_t lo = uint64_t(uint32_t(a)) * c;
+  const uint64_t mid = (lo >> 32) + (a >> 32) * c;
+  return {uint32_t(lo), uint32_t(mid), uint32_t(mid >> 32)};
 }
 
 // w (any w2) reduced lazily: w = lo + w2*2^64 = lo + w2*eps (mod p), and
@@ -149,6 +222,16 @@ __device__ __forceinline__ Ext ext_mul(Ext a, Ext b) {
 
 __device__ __forceinline__ Ext ext_mul_base(Ext a, uint64_t b) {
   return {mul(a.c0, b), mul(a.c1, b)};
+}
+
+// a * b for any words below 2^64, lazy. c1 = a0 b1 + a1 b0: the two 128-bit
+// products summed and reduced once. c0 = a0 b0 + 7 a1 b1: a1 b1 reduced
+// first, 7 times it (below 2^67) added to the 128-bit a0 b0.
+__device__ __forceinline__ Ext ext_mul_lazy(Ext a, Ext b) {
+  const W s = wmul32(mul_lazy(a.c1, b.c1), 7);
+  const Acc e0 = acc_add(prod(a.c0, b.c0), uint64_t(s.w0) | (uint64_t(s.w1) << 32), s.w2);
+  const Acc e1 = acc_mac(prod(a.c0, b.c1), a.c1, b.c0);
+  return {reduce_acc_lazy(e0), reduce_acc_lazy(e1)};
 }
 
 }  // namespace gl

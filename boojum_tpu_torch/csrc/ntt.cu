@@ -1,5 +1,4 @@
-// Radix-2 NTT over Goldilocks for a batch of rows: forward sizes 2^1 .. 2^31,
-// inverse 2^1 .. 2^30.
+// Radix-2 NTT over Goldilocks for a batch of rows, sizes 2^1 .. 2^31.
 //
 // Replaces the Pallas kernels of boojum_tpu/ntt/mxu_ntt.py: _fwd_kernel
 // (forward NTT, natural in, bit-reversed out), _inv_kernel (inverse NTT,
@@ -44,26 +43,54 @@
 // and writes every word once. chip_smoke.py prices the work and gives the
 // bound.
 //
-// The inverse (B2) keeps the stage-at-a-time design: the first 11 stages in
-// shared memory, one tile of 2048 contiguous words per block, then one
-// global pass per wider stage, the 1/n folded into the last.
+// The inverse (B2) runs the same passes in mirror order (ntt.py
+// inverse_pass_plan, the forward plan reversed: 2^20 is 11 + 9). A DIT
+// network with bit-reversed input is the inverse of the DIF network, pass
+// for pass: pass p transforms index bits [lo, lo + K_p), lo = K_1 + ... +
+// K_(p-1), so the first pass takes contiguous sub-transforms of 2^K_1 words
+// on the low bits, and each later (strided) pass first undoes the forward
+// pass's four-step twiddle, multiplying the point at position q of column c
+// by omega_M^-(c * bitrev(q)) at its load (table pre, laid out like the
+// data), then runs the DIT stages of its 2^K_p points (the pair (i0, i0 +
+// 2^b) takes omega_{2^(b+1)}^-(i0 mod 2^b) on the odd element before its add
+// and subtract). The rounds are the forward's in reverse order, on the same
+// tile layouts: the first round (C = 0) loads from device memory and leaves
+// out its products by 1, the last stores. 1/n rides in the last pass: in its
+// table when it is strided (no extra multiply), as one multiply at the store
+// when the transform is one pass. Each DIT stage of a sub-transform is twice
+// the inverse of the DIF stage with the inverse twiddle, so the passes give
+// n times the inverse of the forward transform before the 1/n: the words of
+// ntt.py's ifft_plain.
 //
 // Layout: rows of n words, row-major. Forward: input row r / L (scaled by
 // scale row r % L when a scale is given) lands in output row r, so a (B, n)
-// coefficient stack with an (L, n) scale gives the (B, L, n) LDE. The
-// inverse twiddle table holds omega^-i for i < n/2.
+// coefficient stack with an (L, n) scale gives the (B, L, n) LDE.
 #include "goldilocks.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// Forward passes
+// Passes (the forward and the inverse share the tile machinery)
 // ---------------------------------------------------------------------------
 
 constexpr int kWords = 8;       // words a thread holds
 constexpr int kMaxLast = 11;    // the last pass: 2^11-point sub-transforms
 constexpr int kMaxStrided = 10;
 constexpr int kLogLanes = 3;    // a strided tile: 8 adjacent columns
+
+// What one pass launch reads (on the host; the kernels take its fields as
+// parameters, the tables __restrict__, so their loads may move past stores).
+struct PassArgs {
+  const uint64_t* in;      // the pass's input rows (later passes: out, in place)
+  uint64_t* out;
+  const uint64_t* scale;   // forward, first pass: coset scale rows (null: none)
+  int L;                   // forward, first pass: output rows an input row makes
+  const uint64_t* heap;    // heap[2^(K-1) + j]: the sub-transform's twiddles
+  const uint64_t* table;   // strided: the four-step table (forward post, inverse pre)
+  uint64_t n_inv;          // inverse, a single pass: 1/n at the store (0: none)
+  int log_n, lo;
+  size_t rows;             // the pass's input rows
+};
 
 // A bank-spreading bijection on tile indices (within each aligned 128-word
 // block; linear over GF(2), so it distributes over the | of disjoint bit
@@ -286,107 +313,154 @@ dif_pass(const uint64_t* in, uint64_t* out, const uint64_t* scale, int L,
   }
 }
 
+// DIT stages on position bits C .. C + RB - 1 of the groups a thread holds
+// (dif_round's layout): the pair (i0, i0 + 2^b) multiplies its odd element
+// by omega_{2^(b+1)}^-(i0 mod 2^b) = tsub[(i0 mod 2^b) << (K - 1 - b)], tsub
+// the inverse roots, then adds and subtracts. In the first round (C = 0)
+// that exponent is known at compile time, and where it is 0 (7 of the 12
+// pairs) the product by 1 is left out.
+template <int K, int C, int RB>
+__device__ __forceinline__ void dit_round(uint64_t (&x)[kWords],
+                                          const uint32_t (&plo)[kWords >> RB],
+                                          const uint64_t* tsub) {
+#pragma unroll
+  for (int j = 0; j < (kWords >> RB); ++j) {
+#pragma unroll
+    for (int b = C; b < C + RB; ++b) {
+      const int h = 1 << (b - C);
+#pragma unroll
+      for (int e = 0; e < (1 << RB); ++e) {
+        if (e & h) continue;
+        const int a = j * (1 << RB) + e;
+        const uint32_t m = plo[j] + (uint32_t(e & (h - 1)) << C);
+        const uint64_t u = x[a];
+        const uint64_t v = (C == 0 && (e & (h - 1)) == 0)
+                               ? x[a + h]
+                               : gl::mul(x[a + h], tsub[m << (K - 1 - b)]);
+        x[a] = gl::add(u, v);
+        x[a + h] = gl::sub(u, v);
+      }
+    }
+  }
+}
+
+// x holds a finished round on position bits [C, C + RB); run the rounds
+// above it, 3 bits each and the rest last (the forward's rounds in reverse
+// order), exchanging through the tile.
+template <int K, bool STRIDED, int C, int RB>
+__device__ __forceinline__ void upper_rounds(uint64_t (&x)[kWords], uint64_t* tile,
+                                             const uint64_t* tsub, uint32_t t) {
+  constexpr int C2 = C + RB;
+  if constexpr (C2 < K) {
+    constexpr int R2 = K - C2 < 3 ? K - C2 : 3;
+    to_tile<K, STRIDED, C, RB>(x, tile, t);
+    __syncthreads();
+    from_tile<K, STRIDED, C2, R2>(x, tile, t);
+    uint32_t plo[kWords >> R2];
+    group_lows<K, STRIDED, C2, R2>(t, plo);
+    dit_round<K, C2, R2>(x, plo, tsub);
+    upper_rounds<K, STRIDED, C2, R2>(x, tile, tsub, t);
+  }
+}
+
+// One inverse pass of K position bits (see the header): the first pass
+// (contiguous) reads in, later (strided) passes work in place on out and
+// multiply in their pre table at the load.
 template <int K, bool STRIDED>
-cudaError_t launch_pass(const uint64_t* in, uint64_t* out, const uint64_t* scale,
-                        int L, const uint64_t* heap, const uint64_t* post, int log_n,
-                        int lo, size_t rows, cudaStream_t stream) {
+__global__ void __launch_bounds__(Geo<K, STRIDED>::kThreads, Geo<K, STRIDED>::kMinBlocks)
+dit_pass(const uint64_t* in, uint64_t* out, const uint64_t* __restrict__ heap,
+         const uint64_t* __restrict__ pre, uint64_t n_inv, int log_n, int lo, size_t rows) {
+  using G = Geo<K, STRIDED>;
+  constexpr int R0 = K < 3 ? K : 3;                 // the first round, C = 0
+  constexpr int CL = K - G::kFirst, RL = G::kFirst;  // the last round
+  extern __shared__ uint64_t sm[];
+  uint64_t* tile = sm;
+  uint64_t* tsub = sm + (1 << G::kS);
+  const uint32_t t = threadIdx.x;
+  const size_t n = size_t(1) << log_n;
+  for (uint32_t m = t; m < (1u << (K - 1)); m += G::kThreads)
+    tsub[m] = heap[(1u << (K - 1)) + m];
+  const Locator<K, STRIDED> loc(log_n, lo, rows);
+
+  uint64_t x[kWords];
+#pragma unroll
+  for (int j = 0; j < (kWords >> R0); ++j) {
+    const uint32_t u = t + j * G::kThreads;
+    if constexpr (STRIDED) {
+      const size_t mask = (size_t(1) << (lo + K)) - 1;
+#pragma unroll
+      for (int e = 0; e < (1 << R0); ++e) {
+        size_t row, off;
+        loc.at(tidx<G::kTB, 0, R0>(u, e), row, off);
+        x[j * (1 << R0) + e] = gl::mul(in[row * n + off], pre[off & mask]);
+      }
+    } else {
+      // the group's 2^R0 words are consecutive: 16-byte loads (the wrapper
+      // hands in a 16-byte aligned buffer)
+      size_t row, off;
+      const bool ok = loc.at(tidx<0, 0, R0>(u, 0), row, off);
+      const ulonglong2* src = reinterpret_cast<const ulonglong2*>(in + row * n + off);
+#pragma unroll
+      for (int e = 0; e < (1 << R0); e += 2) {
+        const ulonglong2 v = ok ? src[e / 2] : make_ulonglong2(0, 0);
+        x[j * (1 << R0) + e] = v.x;
+        x[j * (1 << R0) + e + 1] = v.y;
+      }
+    }
+  }
+  uint32_t plo0[kWords >> R0];
+  group_lows<K, STRIDED, 0, R0>(t, plo0);
+  __syncthreads();  // tsub
+  dit_round<K, 0, R0>(x, plo0, tsub);
+  upper_rounds<K, STRIDED, 0, R0>(x, tile, tsub, t);
+  // x holds the round on position bits [CL, CL + RL); threads of a warp
+  // store consecutive words (strided: 64-byte runs)
+#pragma unroll
+  for (int j = 0; j < (kWords >> RL); ++j)
+#pragma unroll
+    for (int e = 0; e < (1 << RL); ++e) {
+      size_t row, off;
+      if (!loc.at(tidx<G::kTB, CL, RL>(t + j * G::kThreads, e), row, off)) continue;
+      const uint64_t v = x[j * (1 << RL) + e];
+      out[row * n + off] = n_inv ? gl::mul(v, n_inv) : v;
+    }
+}
+
+template <bool INV, int K, bool STRIDED>
+cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
   using G = Geo<K, STRIDED>;
   const size_t smem = ((size_t(1) << G::kS) + (size_t(1) << (K - 1))) * 8;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dif_pass<K, STRIDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    cudaError_t e;
+    if constexpr (INV)
+      e = cudaFuncSetAttribute(dit_pass<K, STRIDED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    else
+      e = cudaFuncSetAttribute(dif_pass<K, STRIDED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return e;
   }
-  const size_t subs = rows << (log_n - K);  // sub-transforms (strided: columns)
-  const size_t blocks = STRIDED ? subs >> kLogLanes
-                                : (subs + (size_t(1) << G::kLogW) - 1) >> G::kLogW;
-  dif_pass<K, STRIDED><<<unsigned(blocks), G::kThreads, smem, stream>>>(
-      in, out, scale, L, heap, post, log_n, lo, rows);
+  const size_t subs = a.rows << (a.log_n - K);  // sub-transforms (strided: columns)
+  const unsigned blocks = unsigned(STRIDED ? subs >> kLogLanes
+                                           : (subs + (size_t(1) << G::kLogW) - 1) >> G::kLogW);
+  if constexpr (INV)
+    dit_pass<K, STRIDED><<<blocks, G::kThreads, smem, stream>>>(
+        a.in, a.out, a.heap, a.table, a.n_inv, a.log_n, a.lo, a.rows);
+  else
+    dif_pass<K, STRIDED><<<blocks, G::kThreads, smem, stream>>>(
+        a.in, a.out, a.scale, a.L, a.heap, a.table, a.log_n, a.lo, a.rows);
   return cudaGetLastError();
 }
 
-template <bool STRIDED, int K = 1>
-cudaError_t dispatch_pass(int k, const uint64_t* in, uint64_t* out, const uint64_t* scale,
-                          int L, const uint64_t* heap, const uint64_t* post, int log_n,
-                          int lo, size_t rows, cudaStream_t stream) {
+template <bool INV, bool STRIDED, int K = 1>
+cudaError_t dispatch_pass(int k, const PassArgs& a, cudaStream_t stream) {
   if constexpr (K > (STRIDED ? kMaxStrided : kMaxLast)) {
     return cudaErrorInvalidValue;
   } else {
-    if (k == K)
-      return launch_pass<K, STRIDED>(in, out, scale, L, heap, post, log_n, lo, rows,
-                                     stream);
-    return dispatch_pass<STRIDED, K + 1>(k, in, out, scale, L, heap, post, log_n, lo,
-                                         rows, stream);
+    if (k == K) return launch_pass<INV, K, STRIDED>(a, stream);
+    return dispatch_pass<INV, STRIDED, K + 1>(k, a, stream);
   }
 }
-
-// ---------------------------------------------------------------------------
-// Inverse
-// ---------------------------------------------------------------------------
-
-constexpr int kLogTile = 11;
-constexpr int kTailThreads = 256;
-constexpr int kStageThreads = 256;
-
-// The first log_t inverse (DIT) stages, one tile per block; times post when
-// these are the only stages.
-__global__ void dit_head(const uint64_t* in, uint64_t* out,
-                         const uint64_t* __restrict__ itw, int log_n,
-                         int log_t, int has_post, uint64_t post) {
-  extern __shared__ uint64_t sm[];
-  const int T = 1 << log_t;
-  uint64_t* x = sm;
-  uint64_t* w = sm + T;
-  const size_t base = size_t(blockIdx.x) << log_t;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) x[i] = in[base + i];
-  for (int m = threadIdx.x; m < T / 2; m += blockDim.x)
-    w[m] = itw[size_t(m) << (log_n - log_t)];
-  __syncthreads();
-  for (int st = 0; st < log_t; ++st) {
-    for (int k = threadIdx.x; k < T / 2; k += blockDim.x) {
-      const int j = k & ((1 << st) - 1);
-      const int i0 = ((k >> st) << (st + 1)) + j;
-      const int i1 = i0 + (1 << st);
-      const uint64_t u = x[i0];
-      const uint64_t wv = gl::mul(x[i1], w[j << (log_t - st - 1)]);
-      x[i0] = gl::add(u, wv);
-      x[i1] = gl::sub(u, wv);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < T; i += blockDim.x)
-    out[base + i] = has_post ? gl::mul(x[i], post) : x[i];
-}
-
-// One inverse (DIT) stage s: blocks of 2 << s words, twiddle
-// omega^-(j << (log_n - s - 1)).
-__global__ void dit_stage(uint64_t* x, const uint64_t* __restrict__ itw,
-                          int log_n, int s, size_t rows, int has_post,
-                          uint64_t post) {
-  const size_t t = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= (rows << (log_n - 1))) return;
-  const size_t n = size_t(1) << log_n;
-  const size_t row = t >> (log_n - 1);
-  const size_t k = t & ((n >> 1) - 1);
-  const size_t j = k & ((size_t(1) << s) - 1);
-  const size_t i0 = row * n + ((k >> s) << (s + 1)) + j;
-  const size_t i1 = i0 + (size_t(1) << s);
-  const uint64_t u = x[i0];
-  const uint64_t wv = gl::mul(x[i1], itw[j << (log_n - s - 1)]);
-  uint64_t top = gl::add(u, wv), bot = gl::sub(u, wv);
-  if (has_post) {
-    top = gl::mul(top, post);
-    bot = gl::mul(bot, post);
-  }
-  x[i0] = top;
-  x[i1] = bot;
-}
-
-unsigned blocks_for(size_t threads, int per_block) {
-  return unsigned((threads + per_block - 1) / per_block);
-}
-
-size_t tail_smem(int log_t) { return (size_t(3) << log_t) / 2 * 8; }
 
 }  // namespace
 
@@ -417,13 +491,10 @@ extern "C" cudaError_t bt_ntt_forward(const uint64_t* in, uint64_t* out,
     const int k = plan[p];
     lo -= k;
     const bool first = p == 0;
-    const cudaError_t e =
-        lo > 0 ? dispatch_pass<true>(k, src, out, first ? scale : nullptr, first ? L : 1,
-                                     heap, post, log_n, lo, first ? rows_in : size_t(rows),
-                                     stream)
-               : dispatch_pass<false>(k, src, out, first ? scale : nullptr,
-                                      first ? L : 1, heap, post, log_n, 0,
-                                      first ? rows_in : size_t(rows), stream);
+    const PassArgs a{src, out, first ? scale : nullptr, first ? L : 1, heap, post, 0,
+                     log_n, lo, first ? rows_in : size_t(rows)};
+    const cudaError_t e = lo > 0 ? dispatch_pass<false, true>(k, a, stream)
+                                 : dispatch_pass<false, false>(k, a, stream);
     if (e != cudaSuccess) return e;
     if (lo > 0) post += size_t(1) << (lo + k);
     src = out;
@@ -431,19 +502,37 @@ extern "C" cudaError_t bt_ntt_forward(const uint64_t* in, uint64_t* out,
   return cudaSuccess;
 }
 
-// out (rows, n) = inverse NTT of the bit-reversed input rows, times n_inv.
+// out (rows, n) = inverse NTT of the bit-reversed input rows, times n_inv,
+// in the passes of `plan` (num_passes sizes, first: the low bits, to last;
+// see the header). heap[2^(K-1) + j] = omega_{2^K}^-j for every pass size K;
+// pre holds the strided passes' tables one after another (2^(lo + K) words
+// each, the last times n_inv). in must be 16-byte aligned; in and out may be
+// the same buffer.
 extern "C" cudaError_t bt_ntt_inverse(const uint64_t* in, uint64_t* out,
-                                      const uint64_t* itw, int log_n,
+                                      const uint64_t* heap, const uint64_t* pre,
+                                      const int* plan, int num_passes, int log_n,
                                       long long rows, uint64_t n_inv,
                                       cudaStream_t stream) {
-  const int log_t = log_n < kLogTile ? log_n : kLogTile;
-  const size_t r = size_t(rows);
-  const unsigned tiles = unsigned(r << (log_n - log_t));
-  dit_head<<<tiles, kTailThreads, tail_smem(log_t), stream>>>(
-      in, out, itw, log_n, log_t, log_t == log_n, n_inv);
-  for (int s = log_t; s < log_n; ++s) {
-    dit_stage<<<blocks_for(r << (log_n - 1), kStageThreads), kStageThreads, 0,
-                stream>>>(out, itw, log_n, s, r, s == log_n - 1, n_inv);
+  if (num_passes < 1 || (reinterpret_cast<uintptr_t>(in) & 15)) return cudaErrorInvalidValue;
+  int lo = 0;
+  for (int p = 0; p < num_passes; ++p) {
+    const int k = plan[p];
+    const bool ok = p == 0 ? (k >= 1 && k <= kMaxLast)
+                           : (k >= 1 && k <= kMaxStrided && lo >= kLogLanes);
+    if (!ok) return cudaErrorInvalidValue;
+    lo += k;
   }
-  return cudaGetLastError();
+  if (lo != log_n) return cudaErrorInvalidValue;
+  lo = 0;
+  for (int p = 0; p < num_passes; ++p) {
+    const int k = plan[p];
+    const PassArgs a{p == 0 ? in : out, out, nullptr, 1, heap, pre,
+                     num_passes == 1 ? n_inv : 0, log_n, lo, size_t(rows)};
+    const cudaError_t e = lo > 0 ? dispatch_pass<true, true>(k, a, stream)
+                                 : dispatch_pass<true, false>(k, a, stream);
+    if (e != cudaSuccess) return e;
+    if (lo > 0) pre += size_t(1) << (lo + k);
+    lo += k;
+  }
+  return cudaSuccess;
 }

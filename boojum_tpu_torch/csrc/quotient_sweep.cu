@@ -9,26 +9,44 @@
 // standalone entries cp_quotient, lookup_quotient, lookup_quotient_general
 // and gate_terms_fn, which are this launch with the other parts switched
 // off and no 1/Z_H. The TPU kernel traces every gate into the kernel body on
-// (lo, hi) u32 planes; here one thread evaluates one coset row with 64-bit
-// words, replaying each gate's captured op program from a table, so a new
+// (lo, hi) u32 planes; here a thread evaluates R coset rows (or a share of
+// one) with 64-bit words, replaying each gate's captured op program from a table, so a new
 // gate or a new challenge needs no rebuild.
 //
 // What bounds it on the H100: integer operations. A row reads 8 bytes from
 // each of the 55 coset columns and tables (16 witness, 22 setup, 12 stage-2,
 // 2 shifted z, x, L0, 1/Z_H) and writes 16, about 460 bytes, and at the
-// fma-chain widths does some 6,500 32-bit integer instructions (the gate
-// programs, the GF(p^2) chunk products and the alpha weights, as
-// chip_smoke.py counts them): about 14 per byte, nearly three times the
-// card's ratio of integer issue rate to memory rate. The table and the
-// challenge powers are read by every thread at the same address and stay in
-// cache. The interpreter keeps its slots in a small per-thread array. The
-// lookup terms share the row's stage-2 reads and the one 1/Z_H multiply, so
-// they run in the same launch: per sub-argument i,
+// fma-chain widths does some 350 field products, most of them the copy
+// permutation's GF(p^2) chunk products: several times the card's ratio of
+// integer issue rate to memory rate (chip_smoke.py counts the plain
+// version's operations and prices them). What the design does about it:
+// - the arithmetic is lazy within goldilocks.cuh's contracts: every value
+//   between operations is a word below 2^64 congruent to the result, each
+//   product's 128 bits summed unreduced where it joins a sum (each gate's
+//   Σ term·α^t, the lookup aggregates Σ γ'^j·v_j, the linear parts of num
+//   and den, every α-weighted term, the GF(p^2) products' coefficients) and
+//   the sum reduced once; only the outputs are made canonical;
+// - the scalar table carries entries that save products: β·k_i per copy
+//   column (num = w + γ + (β·k_i)·x) and 7·α^t.c1, so an α-weighted GF(p^2)
+//   term is four products with no multiply by the non-residue;
+// - the block copies the program, its constants and the scalar table into
+//   shared memory once; a thread takes R rows, so one decoded op of a gate
+//   program does R independent field operations, on slots kept in shared
+//   memory, slot-major (a warp's accesses are consecutive words, free of
+//   bank conflicts; slots in local memory measured no faster and cost
+//   LDL/STL traffic);
+// - what sets its pace is how many warps hide the latency of the products'
+//   dependent chains: the launch caps registers at 80 (24 warps an SM) with
+//   2 rows a thread where there are gates, at 64 without (looser caps spill
+//   less but measured slower); where the rows are
+//   too few to fill the card (2^16), 2 sub-threads share a row, each taking
+//   every other gate instance, chunk and lookup term.
+// The lookup terms share the row's stage-2 reads and the one 1/Z_H multiply,
+// so they run in the same launch: per sub-argument i,
 // A_i·(Σ_j γ'^j·w_{i,j} + γ'^w·tid + β') - sel, then for the table
-// B·(Σ_j γ'^j·t_j + γ'^w·t_id + β') - M, where β' + γ'^w·tid and sel are
-// computed once per row. sel is 1 in specialized mode (empty path) and the
-// lookup-marker gate's selector over the constant columns in general mode,
-// the same product the gate part forms for a gate's selector.
+// B·(Σ_j γ'^j·t_j + γ'^w·t_id + β') - M. sel is 1 in specialized mode (empty
+// path) and the lookup-marker gate's selector over the constant columns in
+// general mode, the same product the gate part forms for a gate's selector.
 //
 // Program table (int32): first the lookup header
 //   R, width, first tuple column, table-id constant column, sel path_len,
@@ -42,7 +60,9 @@
 //   num_terms, term slots...
 // Scalar table (uint64): beta (2), gamma (2), the non-residues (Ct), then
 // the alpha powers as c0 (T) and c1 (T); with lookups then beta' (2) and the
-// powers gamma'^0..gamma'^width as (c0, c1) pairs.
+// powers gamma'^0..gamma'^width as (c0, c1) pairs; then the kernel's own
+// entries, which no plain version reads: (beta.c0·k_i, beta.c1·k_i) per copy
+// column and 7·alpha^t.c1 (T).
 //
 // A load of instance inst reads column base + inst·stride of its block: a
 // copy cell has stride principal_width, a witness cell base Ct + index and
@@ -59,7 +79,6 @@
 namespace {
 
 constexpr int kMaxSlots = 32;
-constexpr int kThreads = 128;
 constexpr int kGates = 1, kCopyPermutation = 2, kLookups = 4;
 
 using gl::Ext;
@@ -69,175 +88,374 @@ struct Operands {
       *zhinv;
 };
 
-// product over the path bits of c_b or 1 - c_b
-__device__ __forceinline__ uint64_t selector(const int* prog, int len,
+// The launch's counts.
+struct Counts {
+  int table_len, prog_len, num_kvals, Ct, chunk_deg, num_alpha, parts, num_slots;
+  size_t n;
+};
+
+// A GF(p^2) sum of products, each coefficient an accumulator of 128-bit
+// products (gl::Acc) reduced once.
+struct ExtA {
+  gl::Acc c0, c1;
+};
+
+__device__ __forceinline__ ExtA ext_word(uint64_t c0, uint64_t c1) {
+  return {{c0, 0, 0}, {c1, 0, 0}};
+}
+
+__device__ __forceinline__ Ext reduce(ExtA a) {
+  return {gl::reduce_acc_lazy(a.c0), gl::reduce_acc_lazy(a.c1)};
+}
+
+__device__ __forceinline__ void add_into(ExtA& acc, const ExtA& x) {
+  acc.c0 = gl::acc_sum(acc.c0, x.c0);
+  acc.c1 = gl::acc_sum(acc.c1, x.c1);
+}
+
+// acc += v·(g0 + g1 w) for a base-field v: two products.
+__device__ __forceinline__ void mac_base(ExtA& acc, uint64_t v, uint64_t g0, uint64_t g1) {
+  acc.c0 = gl::acc_mac(acc.c0, v, g0);
+  acc.c1 = gl::acc_mac(acc.c1, v, g1);
+}
+
+// acc += x·(a0 + a1 w) with a1x7 = 7·a1: x0 a0 + 7 x1 a1 and x0 a1 + x1 a0,
+// four products.
+__device__ __forceinline__ void mac_ext(ExtA& acc, Ext x, uint64_t a0, uint64_t a1,
+                                        uint64_t a1x7) {
+  acc.c0 = gl::acc_mac(gl::acc_mac(acc.c0, x.c0, a0), x.c1, a1x7);
+  acc.c1 = gl::acc_mac(gl::acc_mac(acc.c1, x.c0, a1), x.c1, a0);
+}
+
+// product over the path bits of c_b or 1 - c_b (constants are canonical),
+// lazy
+__device__ __forceinline__ uint64_t selector(const int* path, int len,
                                              const uint64_t* consts, size_t n,
                                              size_t row) {
   uint64_t sel = 1;
   for (int b = 0; b < len; ++b) {
     const uint64_t cb = consts[size_t(b) * n + row];
-    sel = gl::mul(sel, prog[b] ? cb : gl::sub(1, cb));
+    sel = gl::mul_lazy(sel, path[b] ? cb : gl::sub(1, cb));
   }
   return sel;
 }
 
-__global__ void sweep(Operands o, const uint64_t* __restrict__ table,
-                      const int* __restrict__ prog,
-                      const uint64_t* __restrict__ kvals, int Ct,
-                      int chunk_deg, int num_alpha, int parts, size_t n,
-                      uint64_t* __restrict__ out0,
-                      uint64_t* __restrict__ out1) {
-  const size_t row = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const Ext beta{table[0], table[1]};
-  const Ext gamma{table[2], table[3]};
-  const uint64_t* ks = table + 4;
-  const uint64_t* a0 = ks + Ct;
+// One launch: a block of T threads takes R·T/S rows; S sub-threads share a
+// row (sub-thread sub = t / (T/S), so a warp is one sub-thread of 32 or more
+// rows), each taking every S-th gate instance, copy-permutation chunk and
+// lookup term, and sub-thread 0 sums their partial terms. A thread's gate
+// slots (slot s of its row k at (s R + k) T + t) live in shared memory. B
+// blocks an SM bound the registers a thread may take.
+template <int R, int T, int S, int B>
+__global__ void __launch_bounds__(T, B)
+sweep(const Operands o, const uint64_t* __restrict__ table_g, const int* __restrict__ prog_g,
+      const uint64_t* __restrict__ kvals_g, const Counts c, uint64_t* __restrict__ out0,
+      uint64_t* __restrict__ out1) {
+  constexpr int L = T / S;  // rows of a sub-thread's group in one pass
+  extern __shared__ uint64_t sm[];
+  const uint32_t t = threadIdx.x;
+  const int sub = t / L;
+  const uint32_t lane = t % L;
+  uint64_t* table = sm;
+  uint64_t* kvals = table + c.table_len;
+  uint64_t* slot = kvals + c.num_kvals + t;  // this thread's slots
+  uint64_t* part = kvals + c.num_kvals + c.num_slots * R * T;  // S > 1: 2 R T words
+  int* prog = reinterpret_cast<int*>(part + (S > 1 ? 2 * R * T : 0));
+  for (int i = t; i < c.table_len; i += T) table[i] = table_g[i];
+  for (int i = t; i < c.num_kvals; i += T) kvals[i] = kvals_g[i];
+  for (int i = t; i < c.prog_len; i += T) prog[i] = prog_g[i];
+  __syncthreads();
+
+  const size_t n = c.n;
+  // the thread's rows first + k L; past the end a thread repeats the last
+  // row and stores nothing
+  const size_t first = size_t(blockIdx.x) * (R * L) + lane;
+  const auto row_of = [&](int k) {
+    const size_t r = first + size_t(k) * L;
+    return r < n ? r : n - 1;
+  };
+  size_t row[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) row[k] = row_of(k);
+
+  const int Ct = c.Ct;
+  const int num_alpha = c.num_alpha;
+  const uint64_t* a0 = table + 4 + Ct;  // after beta, gamma, the non-residues
   const uint64_t* a1 = a0 + num_alpha;
-  Ext acc{0, 0};
-  int t = 0;  // alpha power index
+  const uint64_t* lk = a1 + num_alpha;  // beta', then the gamma'^j pairs
 
   // ---- lookup header ----
   int pc = 0;
-  const int R = prog[pc++];
+  const int R_lk = prog[pc++];
   const int width = prog[pc++];
   const int col_base = prog[pc++];
   const int tid_const = prog[pc++];
   const int sel_len = prog[pc++];
   const int* sel_path = prog + pc;
   pc += sel_len;
+  const bool lookups = (c.parts & kLookups) && R_lk > 0;
+  const uint64_t* bk = lk + (lookups ? 2 + 2 * (width + 1) : 0);  // kernel entries
+  const uint64_t* a1x7 = bk + 2 * Ct;
 
-  // ---- gate terms ----
-  const int num_gates = prog[pc++];
-  uint64_t slot[kMaxSlots];
-  for (int g = 0; g < ((parts & kGates) ? num_gates : 0); ++g) {
+  ExtA acc[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) acc[k] = ExtA{};
+  int ta = 0;  // alpha power index
+
+  // ---- gate terms: one decoded op, R rows ----
+  const int num_gates = (c.parts & kGates) ? prog[pc] : 0;
+  ++pc;
+  int inst_no = 0;  // instances so far, over all gates: sub-thread inst_no % S
+  for (int g = 0; g < num_gates; ++g) {
     const int path_len = prog[pc++];
-    const uint64_t sel = selector(prog + pc, path_len, o.consts, n, row);
+    const int* path = prog + pc;
     pc += path_len;
     const int reps = prog[pc++];
     pc++;  // num_slots, checked on the host
-    const int body = pc;
-    Ext gate_acc{0, 0};
-    for (int inst = 0; inst < reps; ++inst) {
-      pc = body;
-      const int num_loads = prog[pc++];
-      for (int i = 0; i < num_loads; ++i, pc += 4) {
-        const uint64_t* block = prog[pc + 1] ? o.consts : o.cols;
-        const int col = prog[pc + 2] + inst * prog[pc + 3];
-        slot[prog[pc]] = block[size_t(col) * n + row];
+    // the body every instance replays: offsets of its loads, constants,
+    // ops and terms in the program
+    const int loads = pc + 1, num_loads = prog[pc];
+    const int consts = loads + 4 * num_loads + 1, num_consts = prog[consts - 1];
+    const int ops = consts + 2 * num_consts + 1, num_ops = prog[ops - 1];
+    const int terms = ops + 4 * num_ops + 1, num_terms = prog[terms - 1];
+    pc = terms + num_terms;
+    ExtA gacc[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) gacc[k] = ExtA{};
+    for (int inst = 0; inst < reps; ++inst, ta += num_terms) {
+      if (S > 1 && inst_no++ % S != sub) continue;
+      for (int i = 0; i < num_loads; ++i) {
+        const int* ld = prog + loads + 4 * i;
+        const uint64_t* src = (ld[1] ? o.consts : o.cols) + size_t(ld[2] + inst * ld[3]) * n;
+        const int s = ld[0];
+#pragma unroll
+        for (int k = 0; k < R; ++k) slot[(s * R + k) * T] = src[row[k]];
       }
-      const int num_consts = prog[pc++];
-      for (int i = 0; i < num_consts; ++i, pc += 2)
-        slot[prog[pc]] = kvals[prog[pc + 1]];
-      const int num_ops = prog[pc++];
-      for (int i = 0; i < num_ops; ++i, pc += 4) {
-        const uint64_t x = slot[prog[pc + 2]], y = slot[prog[pc + 3]];
-        uint64_t r;
-        switch (prog[pc]) {
-          case 0: r = gl::add(x, y); break;
-          case 1: r = gl::sub(x, y); break;
-          case 2: r = gl::mul(x, y); break;
-          case 3: r = gl::neg(x); break;
-          default: r = gl::dbl(x); break;
+      for (int i = 0; i < num_consts; ++i) {
+        const int s = prog[consts + 2 * i];
+        const uint64_t v = kvals[prog[consts + 2 * i + 1]];
+#pragma unroll
+        for (int k = 0; k < R; ++k) slot[(s * R + k) * T] = v;
+      }
+      for (int i = 0; i < num_ops; ++i) {
+        const int* od = prog + ops + 4 * i;
+        const int op = od[0], dst = od[1], sa = od[2], sb = od[3];
+        uint64_t x[R], y[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          x[k] = slot[(sa * R + k) * T];
+          y[k] = slot[(sb * R + k) * T];
         }
-        slot[prog[pc + 1]] = r;
+        // every slot value is a word below 2^64 (lazy); each op takes any
+        switch (op) {
+          case 0:
+#pragma unroll
+            for (int k = 0; k < R; ++k) x[k] = gl::add_lazy(x[k], y[k]);
+            break;
+          case 1:
+#pragma unroll
+            for (int k = 0; k < R; ++k) x[k] = gl::sub_lazy(x[k], y[k]);
+            break;
+          case 2:
+#pragma unroll
+            for (int k = 0; k < R; ++k) x[k] = gl::mul_lazy(x[k], y[k]);
+            break;
+          case 3:
+#pragma unroll
+            for (int k = 0; k < R; ++k) x[k] = gl::sub_lazy(0, x[k]);
+            break;
+          default:
+#pragma unroll
+            for (int k = 0; k < R; ++k) x[k] = gl::add_lazy(x[k], x[k]);
+            break;
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) slot[(dst * R + k) * T] = x[k];
       }
-      const int num_terms = prog[pc++];
-      for (int i = 0; i < num_terms; ++i, ++t) {
-        const uint64_t term = slot[prog[pc++]];
-        gate_acc = gl::ext_add(gate_acc, Ext{gl::mul(term, a0[t]),
-                                             gl::mul(term, a1[t])});
+      for (int i = 0; i < num_terms; ++i) {
+        const int s = prog[terms + i];
+        const uint64_t w0 = a0[ta + i], w1 = a1[ta + i];
+#pragma unroll
+        for (int k = 0; k < R; ++k) mac_base(gacc[k], slot[(s * R + k) * T], w0, w1);
       }
     }
-    acc = gl::ext_add(acc, gl::ext_mul_base(gate_acc, sel));
-  }
-
-  // ---- copy-permutation terms ----
-  if (parts & kCopyPermutation) {
-    const Ext z{o.s2[row], o.s2[n + row]};
-    const uint64_t x = o.xs[row];
-    const Ext zm1{gl::sub(z.c0, 1), z.c1};
-    acc = gl::ext_add(acc, gl::ext_mul(gl::ext_mul_base(zm1, o.l0[row]),
-                                       Ext{a0[t], a1[t]}));
-    ++t;
-    const int num_chunks = (Ct + chunk_deg - 1) / chunk_deg;
-    Ext prev = z;  // rhs of chunk j: z, then partial j-1
-    for (int j = 0; j < num_chunks; ++j) {
-      Ext num_p{1, 0}, den_p{1, 0};
-      const int end = min(Ct, (j + 1) * chunk_deg);
-      for (int col = j * chunk_deg; col < end; ++col) {
-        const uint64_t w = o.cols[size_t(col) * n + row];
-        const uint64_t kx = gl::mul(x, ks[col]);
-        const Ext num{gl::add(gl::add(w, gl::mul(kx, beta.c0)), gamma.c0),
-                      gl::add(gl::mul(kx, beta.c1), gamma.c1)};
-        const uint64_t s = o.sigma[size_t(col) * n + row];
-        const Ext den{gl::add(gl::add(w, gl::mul(s, beta.c0)), gamma.c0),
-                      gl::add(gl::mul(s, beta.c1), gamma.c1)};
-        num_p = col == j * chunk_deg ? num : gl::ext_mul(num_p, num);
-        den_p = col == j * chunk_deg ? den : gl::ext_mul(den_p, den);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (path_len) {
+        const uint64_t sel = selector(path, path_len, o.consts, n, row[k]);
+        const Ext ga = reduce(gacc[k]);
+        mac_base(acc[k], sel, ga.c0, ga.c1);
+      } else {
+        add_into(acc[k], gacc[k]);
       }
-      const Ext lhs = j + 1 < num_chunks
-                          ? Ext{o.s2[size_t(2 + 2 * j) * n + row],
-                                o.s2[size_t(3 + 2 * j) * n + row]}
-                          : Ext{o.zs[row], o.zs[n + row]};
-      const Ext term = gl::ext_sub(gl::ext_mul(lhs, den_p),
-                                   gl::ext_mul(prev, num_p));
-      acc = gl::ext_add(acc, gl::ext_mul(term, Ext{a0[t], a1[t]}));
-      ++t;
-      prev = lhs;
     }
   }
 
-  // ---- lookup terms ----
-  if ((parts & kLookups) && R > 0) {
-    const uint64_t* lk = a1 + num_alpha;  // beta', then gamma'^j pairs
+  // ---- copy-permutation and lookup terms: one row at a time, into cacc ----
+  const auto add_to = [&](int k, const ExtA& x) {
+#pragma unroll
+    for (int kk = 0; kk < R; ++kk)
+      if (kk == k) add_into(acc[kk], x);
+  };
+  const int ta_cp = ta;
+  const int num_chunks = (Ct + c.chunk_deg - 1) / c.chunk_deg;
+  if (c.parts & kCopyPermutation) {
+    const uint64_t b0 = table[0], b1 = table[1], g0 = table[2], g1 = table[3];
+#pragma unroll 1
+    for (int k = 0; k < R; ++k) {
+      const size_t r = row_of(k);
+      ExtA cacc = ExtA{};
+      const Ext z{o.s2[r], o.s2[n + r]};
+      const uint64_t x = o.xs[r];
+      if (sub == 0) {
+        const uint64_t l0 = o.l0[r];
+        const Ext l0z{gl::mul_lazy(gl::sub(z.c0, 1), l0), gl::mul_lazy(z.c1, l0)};
+        mac_ext(cacc, l0z, a0[ta_cp], a1[ta_cp], a1x7[ta_cp]);
+      }
+      Ext prev = z;  // rhs of chunk j: z, then partial j-1
+      for (int j = sub; j < num_chunks; j += S) {
+        if (S > 1 && j > 0)
+          prev = Ext{o.s2[size_t(2 * j) * n + r], o.s2[size_t(2 * j + 1) * n + r]};
+        Ext num_p{0, 0}, den_p{0, 0};
+        const int start = j * c.chunk_deg;
+        const int end = min(Ct, start + c.chunk_deg);
+        for (int col = start; col < end; ++col) {
+          const uint64_t w = o.cols[size_t(col) * n + r];
+          const uint64_t s = o.sigma[size_t(col) * n + r];
+          // num = w + gamma + (beta k)·x, den = w + gamma + beta·sigma:
+          // each coefficient a product and at most two words, reduced once
+          const gl::Acc wg = gl::acc_add({w, 0, 0}, g0, 0);
+          const Ext num{gl::reduce_acc_lazy(gl::acc_sum(gl::prod(bk[2 * col], x), wg)),
+                        gl::reduce_acc_lazy(gl::acc_add(gl::prod(bk[2 * col + 1], x), g1, 0))};
+          const Ext den{gl::reduce_acc_lazy(gl::acc_sum(gl::prod(b0, s), wg)),
+                        gl::reduce_acc_lazy(gl::acc_add(gl::prod(b1, s), g1, 0))};
+          num_p = col == start ? num : gl::ext_mul_lazy(num_p, num);
+          den_p = col == start ? den : gl::ext_mul_lazy(den_p, den);
+        }
+        const Ext lhs = j + 1 < num_chunks
+                            ? Ext{o.s2[size_t(2 + 2 * j) * n + r],
+                                  o.s2[size_t(3 + 2 * j) * n + r]}
+                            : Ext{o.zs[r], o.zs[n + r]};
+        const Ext u = gl::ext_mul_lazy(lhs, den_p), v = gl::ext_mul_lazy(prev, num_p);
+        const int tj = ta_cp + 1 + j;
+        mac_ext(cacc, Ext{gl::sub_lazy(u.c0, v.c0), gl::sub_lazy(u.c1, v.c1)}, a0[tj],
+                a1[tj], a1x7[tj]);
+        prev = lhs;
+      }
+      add_to(k, cacc);
+    }
+    ta += 1 + num_chunks;
+  }
+
+  // ---- lookup terms: sub-arguments i, then the table (i = R_lk) ----
+  if (lookups) {
     const uint64_t* gp = lk + 2;
-    const Ext lbeta{lk[0], lk[1]};
-    const uint64_t sel = selector(sel_path, sel_len, o.consts, n, row);
-    const uint64_t tid = o.consts[size_t(tid_const) * n + row];
-    const Ext base =
-        gl::ext_add(lbeta, gl::ext_mul_base(Ext{gp[2 * width], gp[2 * width + 1]}, tid));
-    for (int i = 0; i < R; ++i, ++t) {
-      Ext den = base;
-      for (int j = 0; j < width; ++j) {
-        const uint64_t v = o.cols[size_t(col_base + i * width + j) * n + row];
-        den = gl::ext_add(den, gl::ext_mul_base(Ext{gp[2 * j], gp[2 * j + 1]}, v));
+#pragma unroll 1
+    for (int k = 0; k < R; ++k) {
+      const size_t r = row_of(k);
+      ExtA cacc = ExtA{};
+      const uint64_t sel = selector(sel_path, sel_len, o.consts, n, r);
+      const uint64_t tid = o.consts[size_t(tid_const) * n + r];
+      ExtA base = ext_word(lk[0], lk[1]);  // beta' + gamma'^w·tid
+      mac_base(base, tid, gp[2 * width], gp[2 * width + 1]);
+      for (int i = sub; i < R_lk; i += S) {
+        ExtA den = base;
+        for (int j = 0; j < width; ++j)
+          mac_base(den, o.cols[size_t(col_base + i * width + j) * n + r], gp[2 * j],
+                   gp[2 * j + 1]);
+        const Ext a{o.lk[size_t(2 * i) * n + r], o.lk[size_t(2 * i + 1) * n + r]};
+        Ext term = gl::ext_mul_lazy(a, reduce(den));
+        term.c0 = gl::sub_lazy(term.c0, sel);
+        mac_ext(cacc, term, a0[ta + i], a1[ta + i], a1x7[ta + i]);
       }
-      const Ext a{o.lk[size_t(2 * i) * n + row], o.lk[size_t(2 * i + 1) * n + row]};
-      Ext term = gl::ext_mul(a, den);
-      term.c0 = gl::sub(term.c0, sel);
-      acc = gl::ext_add(acc, gl::ext_mul(term, Ext{a0[t], a1[t]}));
+      if (R_lk % S == sub) {
+        ExtA den = ext_word(lk[0], lk[1]);
+        for (int j = 0; j <= width; ++j)
+          mac_base(den, o.tables[size_t(j) * n + r], gp[2 * j], gp[2 * j + 1]);
+        const Ext b{o.lk[size_t(2 * R_lk) * n + r], o.lk[size_t(2 * R_lk + 1) * n + r]};
+        Ext term = gl::ext_mul_lazy(b, reduce(den));
+        term.c0 = gl::sub_lazy(term.c0, o.mult[r]);
+        const int tb = ta + R_lk;
+        mac_ext(cacc, term, a0[tb], a1[tb], a1x7[tb]);
+      }
+      add_to(k, cacc);
     }
-    Ext den = lbeta;
-    for (int j = 0; j <= width; ++j) {
-      const uint64_t v = o.tables[size_t(j) * n + row];
-      den = gl::ext_add(den, gl::ext_mul_base(Ext{gp[2 * j], gp[2 * j + 1]}, v));
+  }
+
+  // ---- sub-thread 0 sums the partial terms, times 1/Z_H ----
+  Ext v[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) v[k] = reduce(acc[k]);
+  if constexpr (S > 1) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      part[(2 * k) * T + t] = v[k].c0;
+      part[(2 * k + 1) * T + t] = v[k].c1;
     }
-    const Ext b{o.lk[size_t(2 * R) * n + row], o.lk[size_t(2 * R + 1) * n + row]};
-    Ext term = gl::ext_mul(b, den);
-    term.c0 = gl::sub(term.c0, o.mult[row]);
-    acc = gl::ext_add(acc, gl::ext_mul(term, Ext{a0[t], a1[t]}));
+    __syncthreads();
+    if (sub) return;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+#pragma unroll
+      for (int q = 1; q < S; ++q) {
+        v[k].c0 = gl::add_lazy(v[k].c0, part[(2 * k) * T + q * L + lane]);
+        v[k].c1 = gl::add_lazy(v[k].c1, part[(2 * k + 1) * T + q * L + lane]);
+      }
   }
-  if (o.zhinv != nullptr) {
-    acc = gl::ext_mul_base(acc, o.zhinv[row]);
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (first + size_t(k) * L >= n) continue;
+    const size_t r = row[k];
+    if (o.zhinv != nullptr) {
+      const uint64_t zh = o.zhinv[r];
+      v[k] = {gl::mul_lazy(v[k].c0, zh), gl::mul_lazy(v[k].c1, zh)};
+    }
+    out0[r] = gl::canonical(v[k].c0);
+    out1[r] = gl::canonical(v[k].c1);
   }
-  out0[row] = acc.c0;
-  out1[row] = acc.c1;
+}
+
+template <int R, int T, int S, int B>
+cudaError_t launch(const Operands& o, const uint64_t* table, const int* prog,
+                   const uint64_t* kvals, const Counts& c, uint64_t* out0, uint64_t* out1,
+                   cudaStream_t stream) {
+  const size_t smem = size_t(c.table_len + c.num_kvals) * 8 + size_t(c.num_slots) * R * T * 8 +
+                      (S > 1 ? size_t(2) * R * T * 8 : 0) + size_t(c.prog_len) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sweep<R, T, S, B>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const unsigned blocks = unsigned((c.n + R * T / S - 1) / (R * T / S));
+  sweep<R, T, S, B><<<blocks, T, smem, stream>>>(o, table, prog, kvals, c, out0, out1);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// The terms of one launch into out0, out1 (n words each). rows_per_thread
+// R, threads T and sub-threads a row S pick one of the launch geometries
+// below, each with the blocks an SM B its registers must allow.
 extern "C" cudaError_t bt_quotient_sweep(
     const uint64_t* cols, const uint64_t* mult, const uint64_t* sigma,
     const uint64_t* consts, const uint64_t* tables, const uint64_t* s2,
     const uint64_t* lk, const uint64_t* zs, const uint64_t* xs,
-    const uint64_t* l0, const uint64_t* zhinv, const uint64_t* table,
-    const int* prog, const uint64_t* kvals, int Ct, int chunk_deg,
-    int num_alpha, int parts, long long n, uint64_t* out0, uint64_t* out1,
+    const uint64_t* l0, const uint64_t* zhinv, const uint64_t* table, int table_len,
+    const int* prog, int prog_len, const uint64_t* kvals, int num_kvals, int Ct,
+    int chunk_deg, int num_alpha, int parts, int num_slots, long long n,
+    int rows_per_thread, int threads, int split, uint64_t* out0, uint64_t* out1,
     cudaStream_t stream) {
+  if (n < 1 || num_slots < 0 || num_slots > kMaxSlots || chunk_deg < 1)
+    return cudaErrorInvalidValue;
   const Operands o{cols, mult, sigma, consts, tables, s2, lk, zs, xs, l0, zhinv};
-  const unsigned blocks = unsigned((size_t(n) + kThreads - 1) / kThreads);
-  sweep<<<blocks, kThreads, 0, stream>>>(o, table, prog, kvals, Ct, chunk_deg,
-                                         num_alpha, parts, size_t(n), out0, out1);
-  return cudaGetLastError();
+  const Counts c{table_len, prog_len, num_kvals, Ct, chunk_deg, num_alpha, parts,
+                 num_slots, size_t(n)};
+#define BT_SWEEP(R, T, S, B)                                              \
+  if (rows_per_thread == R && threads == T && split == S)                 \
+    return launch<R, T, S, B>(o, table, prog, kvals, c, out0, out1, stream);
+  // quotient_sweep.py's launch_geometry picks one: with gates at 2^20 rows
+  // (80 registers), without (64), and below 2^18 rows, rows split (64)
+  BT_SWEEP(2, 256, 1, 3) BT_SWEEP(1, 128, 1, 8) BT_SWEEP(1, 256, 2, 4)
+#undef BT_SWEEP
+  return cudaErrorInvalidValue;
 }

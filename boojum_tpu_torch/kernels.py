@@ -85,7 +85,8 @@ _SIGNATURES = {
     "ntt": {
         # in, out, scale, L, heap, post, plan, passes, log_n, rows, stream
         "bt_ntt_forward": (_P, _P, _P, _I, _P, _P, _IP, _I, _I, _LL, _P),
-        "bt_ntt_inverse": (_P, _P, _P, _I, _LL, _U64, _P),
+        # in, out, heap, pre, plan, passes, log_n, rows, 1/n, stream
+        "bt_ntt_inverse": (_P, _P, _P, _P, _IP, _I, _I, _LL, _U64, _P),
     },
     "poseidon2": {
         "bt_poseidon2_set_constants": (_P,),
@@ -95,9 +96,12 @@ _SIGNATURES = {
         "bt_poseidon2_absorb": (_P, _P, _I, _LL, _P),
     },
     "quotient_sweep": {
-        # 11 operand blocks, table, program, constants; Ct, chunk degree,
-        # alpha count, parts; n; the two outputs and the stream
-        "bt_quotient_sweep": (*(_P,) * 14, _I, _I, _I, _I, _LL, _P, _P, _P),
+        # 11 operand blocks; table, its length; program, its length;
+        # constants, their count; Ct, chunk degree, alpha count, parts,
+        # slots; n; rows a thread, threads, sub-threads a row; the two
+        # outputs and the stream
+        "bt_quotient_sweep": (*(_P,) * 12, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _LL,
+                              _I, _I, _I, _P, _P, _P),
     },
     "fri_fold": {
         "bt_fri_fold": (_P, _P, _LL, _U64, _U64, _P, _P, _P, _P),

@@ -14,7 +14,9 @@ _fwd_kernel, _inv_kernel and _fwd_scaled_kernel) carry
 `lde_from_monomial`: a CUDA tensor launches the kernel at every size, a CPU
 tensor runs the plain butterfly stages below, which mirror the JAX
 package's dif_stages / dit_stages. The forward kernel runs in the passes
-of `forward_pass_plan`, with the twiddle tables `_forward_tables` builds.
+of `forward_pass_plan`, with the twiddle tables `_forward_tables` builds;
+the inverse in those of `inverse_pass_plan`, the same passes in mirror
+order, with `_inverse_tables`.
 """
 
 from __future__ import annotations
@@ -130,8 +132,9 @@ def lde_plain(coeffs, scale):
 # ---------------------------------------------------------------------------
 
 
-# The forward kernel's passes (csrc/ntt.cu): strided passes of at most 10
-# index bits, a last pass of at most 11 over contiguous words.
+# The kernels' passes (csrc/ntt.cu): strided passes of at most 10 index
+# bits, a pass of at most 11 over contiguous words (the forward's last, the
+# inverse's first).
 MAX_STRIDED_PASS = 10
 MAX_LAST_PASS = 11
 
@@ -150,17 +153,26 @@ def forward_pass_plan(log_n: int) -> tuple[int, ...]:
     return tuple(rest // m + (i < rest % m) for i in range(m)) + (last,)
 
 
-def _four_step_twiddles(ctx: NTTContext, lo: int, k: int) -> torch.Tensor:
+def inverse_pass_plan(log_n: int) -> tuple[int, ...]:
+    """Index bits of each pass of the inverse kernel, first (the low bits,
+    contiguous sub-transforms) to last: the forward plan reversed, so one
+    pass up to 2^11, two up to 2^21 (2^20: 11 + 9), three up to 2^31."""
+    return forward_pass_plan(log_n)[::-1]
+
+
+def _four_step_twiddles(ctx: NTTContext, lo: int, k: int, inverse: bool = False):
     """The twiddles a strided pass of k bits over columns 2^lo words apart
-    multiplies in at its store, laid out like the data of one 2^(lo + k)
-    block: entry q * 2^lo + c = omega_M^(c * bitrev_k(q)), M = 2^(lo + k)."""
+    multiplies in, laid out like the data of one 2^(lo + k) block: entry
+    q * 2^lo + c = omega_M^(c * bitrev_k(q)), M = 2^(lo + k), at the forward
+    pass's store; its inverse, omega_M^-(c * bitrev_k(q)), at the inverse
+    pass's load."""
     dev = ctx.tw.device
     rev = bitreverse_indices(k, dev)
     cols = torch.arange(1 << lo, dtype=torch.int64, device=dev)
     e = (rev[:, None] * cols[None, :]) % (1 << (lo + k))
-    y = (e << (ctx.log_n - lo - k)).reshape(-1)  # omega_n^y, y < n
+    y = (e << (ctx.log_n - lo - k)).reshape(-1)  # omega_n^(+-y), y < n
     half = ctx.n // 2
-    w = ctx.tw[y % half]
+    w = (ctx.itw if inverse else ctx.tw)[y % half]
     return torch.where(y >= half, gf.neg(w), w)
 
 
@@ -180,6 +192,26 @@ def _forward_tables(log_n: int, device: str):
         posts.append(_four_step_twiddles(ctx, lo, k))
     post = torch.cat(posts) if posts else heap[:1]
     return plan, heap, post
+
+
+@lru_cache(maxsize=8)
+def _inverse_tables(log_n: int, device: str):
+    """(plan, heap, pre, the plan as a C int array, 1/n) of the inverse
+    kernel at size 2^log_n: heap[2^(k-1) + j] = omega_{2^k}^-j for each pass
+    size k; pre the strided passes' inverse four-step twiddles, one table
+    after another, the last times 1/n."""
+    ctx = get_ntt_context(log_n, device)
+    plan = inverse_pass_plan(log_n)
+    heap = torch.zeros(1 << MAX_LAST_PASS, dtype=torch.int64, device=ctx.itw.device)
+    for k in set(plan):
+        heap[1 << (k - 1) : 1 << k] = ctx.itw[:: 1 << (log_n - k)][: 1 << (k - 1)]
+    pres, lo = [], plan[0]
+    for i, k in enumerate(plan[1:], start=2):
+        pre = _four_step_twiddles(ctx, lo, k, inverse=True)
+        pres.append(gf.mul(pre, ctx.n_inv) if i == len(plan) else pre)
+        lo += k
+    pre = torch.cat(pres) if pres else heap[:1]
+    return plan, heap, pre, K.int_array(plan), ctx.n_inv
 
 
 def _forward_launch(name, src, scale, L, log_n, rows_out):
@@ -221,7 +253,7 @@ def fft_natural_to_bitreversed(a: torch.Tensor, scale_row=None) -> torch.Tensor:
 
 def ifft_bitreversed_to_natural(a: torch.Tensor) -> torch.Tensor:
     """Inverse NTT along the last axis (bit-reversed in, natural out,
-    times 1/n) (kernel B2)."""
+    times 1/n) (kernel B2, in the passes of `inverse_pass_plan`)."""
     K.require(a, "ifft input")
     n = a.shape[-1]
     log_n = _log2(n)
@@ -229,15 +261,17 @@ def ifft_bitreversed_to_natural(a: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return ifft_plain(a)
     rows = a.numel() // n
-    ctx = get_ntt_context(log_n, dev)
+    plan, heap, pre, c_plan, n_inv = _inverse_tables(log_n, str(dev))
+    # the first pass loads 16 bytes at a time
+    src = a if a.data_ptr() % 16 == 0 else a.clone()
     out = torch.empty_like(a)
     lib = K.library("ntt")
     with torch.cuda.device(dev):
         K.count("ntt_inverse")
         K.check(
             lib.bt_ntt_inverse(
-                K.ptr(a), K.ptr(out), K.ptr(ctx.itw), log_n, rows,
-                ctx.n_inv, K.stream(dev),
+                K.ptr(src), K.ptr(out), K.ptr(heap), K.ptr(pre), c_plan, len(plan),
+                log_n, rows, n_inv, K.stream(dev),
             ),
             "ntt_inverse",
         )
@@ -283,7 +317,7 @@ def lde_from_monomial(coeffs: torch.Tensor, lde_factor: int) -> torch.Tensor:
 def clear_tables() -> None:
     """Drop the cached twiddle, coset-scale and pass tables, which hold device
     memory (a 2^23-point LDE into 8 cosets caches 640 MiB)."""
-    for cached in (_ntt_context, _forward_tables, _lde_scale, _powers_dev):
+    for cached in (_ntt_context, _forward_tables, _inverse_tables, _lde_scale, _powers_dev):
         cached.cache_clear()
 
 

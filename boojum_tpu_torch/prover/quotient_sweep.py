@@ -23,10 +23,13 @@ then the copy-permutation terms, then the lookup sub-arguments and B.
 Gates reach the kernel as data: each gate's captured op program
 (cs/gate_capture.py) is encoded into an int32 table that the kernel and the
 plain version below both interpret, so the CPU tests check the encoding.
+The scalar table ends with entries only the kernel reads (β·k_i per copy
+column, 7·α^t.c1), which save it products; `kernel_entries` defines them.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,6 +38,7 @@ import torch
 from .. import kernels as K
 from ..cs.gate_capture import OPCODES, capture_gate_program
 from ..field import extension as ext_f
+from ..field import gl
 from ..field import goldilocks as gf
 from .layout import OracleLayout, chunk_columns
 
@@ -92,9 +96,16 @@ def num_gate_terms(gates, geometry) -> int:
     return sum(g.num_repetitions(geometry) * g.num_terms for g in gates if g.num_terms)
 
 
+# the goldilocks.cuh primitive the kernel runs for each gate op
+KERNEL_OP = {"add": "add_lazy", "sub": "sub_lazy", "mul": "mul_lazy", "neg": "sub_lazy",
+             "double": "add_lazy"}
+
+
 def encode_gate_programs(gates, selector_paths, geometry, wit_col):
-    """(int32 program table, uint64 constant values) for every gate with
-    quotient terms, in gate order (layout in csrc/quotient_sweep.cu). A load
+    """(int32 program table, uint64 constant values, the most slots a
+    program uses, the kernel's operations a row by primitive, as
+    `kernel_ops` counts them) for every gate with quotient terms, in gate
+    order (layout in csrc/quotient_sweep.cu). A load
     names its block (0: the witness oracle's columns, the witness columns
     from `wit_col` on; 1: the constant columns) and its column as base +
     instance·stride. Every cell a program loads lies inside the geometry's
@@ -102,12 +113,15 @@ def encode_gate_programs(gates, selector_paths, geometry, wit_col):
     num_consts = geometry.num_constant_columns
     prog = [0]
     kvals = []
+    num_slots = 0
+    ops = Counter()
     for gid, gate in enumerate(gates):
         if not gate.num_terms:
             continue
         p = capture_gate_program(gate)
         if p.num_slots > MAX_SLOTS:
             raise ValueError(f"gate {gate.name}: {p.num_slots} slots > {MAX_SLOTS}")
+        num_slots = max(num_slots, p.num_slots)
         if len(p.terms) != gate.num_terms:
             raise ValueError(f"gate {gate.name}: term count mismatch")
         path = selector_paths[gid]
@@ -137,7 +151,14 @@ def encode_gate_programs(gates, selector_paths, geometry, wit_col):
             prog += [OPCODES[op], dst, a, b]
         prog.append(len(p.terms))
         prog += p.terms
-    return prog, kvals
+        for op, *_ in p.ops:
+            ops[KERNEL_OP[op]] += reps
+        ops["acc_mac"] += 2 * len(p.terms) * reps  # Σ term·α^t
+        if path:  # the selector, then the reduced sum times it
+            ops.update(mul_lazy=len(path), sub=path.count(0), reduce_acc_lazy=2, acc_mac=2)
+        else:
+            ops["acc_add"] += 2
+    return prog, kvals, num_slots, ops
 
 
 def encode_lookup_header(layout: OracleLayout) -> list:
@@ -173,10 +194,10 @@ class SweepPlan:
     def _init(self, layout, gates, selector_paths, geometry, parts, device):
         if not layout.lookups:
             parts &= ~LOOKUPS
-        gate_prog, kvals = ([0], [])
+        gate_prog, kvals, self.num_slots, self.gate_ops = ([0], [], 0, Counter())
         if parts & GATES:
-            gate_prog, kvals = encode_gate_programs(gates, selector_paths, geometry,
-                                                    layout.wit_col)
+            gate_prog, kvals, self.num_slots, self.gate_ops = encode_gate_programs(
+                gates, selector_paths, geometry, layout.wit_col)
         self.layout = layout
         self.parts = parts
         self.prog_np = np.array(encode_lookup_header(layout) + gate_prog, dtype=np.int32)
@@ -190,7 +211,8 @@ class SweepPlan:
                           + (1 + layout.num_chunks if parts & COPY_PERMUTATION else 0)
                           + (layout.R + 1 if parts & LOOKUPS else 0))
         self.table_len = (4 + self.Ct + 2 * self.num_alpha
-                          + (2 * (layout.width + 2) if parts & LOOKUPS else 0))
+                          + (2 * (layout.width + 2) if parts & LOOKUPS else 0)
+                          + 2 * self.Ct + self.num_alpha)
 
     def operand_shapes(self, n: int) -> dict:
         """The shape of every operand block the plan's parts read (the
@@ -219,11 +241,21 @@ class SweepPlan:
         return self.layout.num_s2_rows
 
 
+def kernel_entries(alpha_pows, beta, non_residues) -> list:
+    """The scalar table's last entries, read by the kernel alone: (β.c0·k_i,
+    β.c1·k_i) per copy column, so num = w + γ + (β·k_i)·x takes two products,
+    and 7·α^t.c1 per alpha power, so an α-weighted GF(p^2) term takes four
+    (its c0 is t.c0·α.c0 + t.c1·7α.c1)."""
+    b0, b1 = int(beta[0]) % gl.P, int(beta[1]) % gl.P
+    vals = [v for k in non_residues for v in (b0 * int(k) % gl.P, b1 * int(k) % gl.P)]
+    return vals + [7 * int(a[1]) % gl.P for a in alpha_pows]
+
+
 def scalar_table(plan: SweepPlan, alpha_pows, beta=(0, 0), gamma=(0, 0), non_residues=(),
                  lookup_beta=(0, 0), lookup_gamma=(0, 0), device="cpu"):
     """The uint64 scalar table: beta, gamma, the Ct non-residues, the alpha
     powers (c0 then c1) and, with lookups, beta' and the powers
-    gamma'^0..gamma'^w as (c0, c1) pairs."""
+    gamma'^0..gamma'^w as (c0, c1) pairs; then `kernel_entries`."""
     if len(alpha_pows) != plan.num_alpha or len(non_residues) != plan.Ct:
         raise ValueError(f"the plan takes {plan.num_alpha} alpha powers and "
                          f"{plan.Ct} non-residues")
@@ -234,6 +266,7 @@ def scalar_table(plan: SweepPlan, alpha_pows, beta=(0, 0), gamma=(0, 0), non_res
         vals += [lookup_beta[0], lookup_beta[1]]
         for g in ext_f.powers_s(lookup_gamma, plan.layout.width + 1):
             vals += [g[0], g[1]]
+    vals += kernel_entries(alpha_pows, beta, non_residues)
     return gf.from_numpy(np.array(vals, dtype=np.uint64), device)
 
 
@@ -370,7 +403,7 @@ def sweep_plain(plan: SweepPlan, ops: Operands, table):
             t += 1
             prev = lhs
     if plan.parts & LOOKUPS:
-        lk = tab[4 + Ct + 2 * plan.num_alpha :]
+        lk = tab[4 + Ct + 2 * plan.num_alpha :]  # beta', the gamma'^j pairs
         lbeta = (lk[0], lk[1])
         gpow = [(lk[2 + 2 * j], lk[3 + 2 * j]) for j in range(w + 1)]
         sel = selector_from_consts(consts, mk_path)
@@ -391,6 +424,43 @@ def sweep_plain(plan: SweepPlan, ops: Operands, table):
     return gf.mul(acc[0], ops.zhinv), gf.mul(acc[1], ops.zhinv)
 
 
+def kernel_ops(plan: SweepPlan, zhinv: bool) -> Counter:
+    """The field operations a row of the kernel runs, by goldilocks.cuh
+    primitive (lazy ops, 128-bit products summed into accumulators, their
+    reductions, the lazy GF(p^2) product, canonical `sub`), with β·k_i and
+    7·α^t from the table; loads, addressing and the program's decoding not
+    counted. What a row's own arithmetic costs, for its bound."""
+    ops = Counter(plan.gate_ops)
+    lo = plan.layout
+    if plan.parts & COPY_PERMUTATION:
+        Ct, chunks = plan.Ct, -(-plan.Ct // plan.chunk_deg)
+        ops.update(
+            sub=1, mul_lazy=2,  # L0 (z - 1)
+            acc_add=Ct + 2,  # w + γ, then into the row's sum
+            acc_mac=4 * Ct + 4 * (1 + chunks),  # num and den, the α terms
+            reduce_acc_lazy=4 * Ct,
+            ext_mul_lazy=2 * Ct,  # 2 (d - 1) a chunk, then lhs·den and prev·num
+            sub_lazy=2 * chunks,
+        )
+    if plan.parts & LOOKUPS:
+        R, path = lo.R, list(lo.marker_path)
+        macs = 1 + R * lo.width + lo.width + 1  # β', the tuples, the table
+        ops.update(acc_mac=2 * macs + 4 * (R + 1), mul_lazy=len(path), sub=path.count(0),
+                   reduce_acc_lazy=2 * (R + 1), ext_mul_lazy=R + 1, sub_lazy=R + 1,
+                   acc_add=2)
+    ops.update(reduce_acc_lazy=2, mul_lazy=2 if zhinv else 0)
+    return ops
+
+
+def launch_geometry(n: int, parts: int) -> tuple[int, int, int]:
+    """The kernel's launch geometry (rows a thread, threads a block,
+    sub-threads a row) for n rows, set by measurement on the H100 (PERF.md,
+    B6); one of the instantiations of csrc/quotient_sweep.cu."""
+    if n < 1 << 18:  # too few rows a thread to fill the card: split rows
+        return (1, 256, 2)
+    return (2, 256, 1) if parts & GATES else (1, 128, 1)
+
+
 def sweep(plan: SweepPlan, ops: Operands, table):
     """The terms of one launch: (t0, t1), each (n,) (kernel B6)."""
     K.require(table, "sweep table", (plan.table_len,))
@@ -405,14 +475,17 @@ def sweep(plan: SweepPlan, ops: Operands, table):
         return sweep_plain(plan, ops, table)
     out0 = torch.empty(ops.n, dtype=torch.int64, device=dev)
     out1 = torch.empty(ops.n, dtype=torch.int64, device=dev)
+    rows_per_thread, threads, split = launch_geometry(ops.n, plan.parts)
     lib = K.library("quotient_sweep")
     with torch.cuda.device(dev):
         K.count("quotient_sweep")
         K.check(
             lib.bt_quotient_sweep(
-                *(K.ptr(t) for t in ops.tensors()), K.ptr(table), K.ptr(plan.prog),
-                K.ptr(plan.kvals), plan.Ct, plan.chunk_deg, plan.num_alpha, plan.parts,
-                ops.n, K.ptr(out0), K.ptr(out1), K.stream(dev),
+                *(K.ptr(t) for t in ops.tensors()), K.ptr(table), plan.table_len,
+                K.ptr(plan.prog), len(plan.prog_np), K.ptr(plan.kvals),
+                len(plan.kvals_np), plan.Ct, plan.chunk_deg, plan.num_alpha, plan.parts,
+                plan.num_slots, ops.n, rows_per_thread, threads, split, K.ptr(out0),
+                K.ptr(out1), K.stream(dev),
             ),
             "quotient_sweep",
         )

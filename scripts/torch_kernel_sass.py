@@ -5,9 +5,14 @@ with the CUDA toolkit (no card needed).
     python3 scripts/torch_kernel_sass.py [ROOT]
 
 ROOT holds the `boojum_tpu_torch` package (default: this checkout). Prints
-1. `nvcc -Xptxas -v` for csrc/ntt.cu and csrc/poseidon2.cu: each kernel's
-   registers, shared memory and spills;
-2. one JSON line {"sass_per_op": ...}: the SASS instructions of each field
+1. `nvcc -Xptxas -v` for csrc/ntt.cu, csrc/poseidon2.cu and
+   csrc/quotient_sweep.cu: each kernel's registers, stack frame, shared
+   memory and spills;
+2. one JSON line {"sass_kernels": ...}: for each kernel of
+   csrc/quotient_sweep.cu and each inverse NTT pass of csrc/ntt.cu, its SASS
+   instructions by class (the pipes below, and the local, shared and global
+   loads and stores), so a stack-resident array shows as LDL/STL;
+3. one JSON line {"sass_per_op": ...}: the SASS instructions of each field
    primitive of csrc/goldilocks.cuh, by pipe. Each primitive is chained 8
    times in a micro-kernel, and the same kernel with no call (same loads
    and store) is subtracted,
@@ -35,6 +40,17 @@ OPS = {
     "mul_lazy": ("", "a = gl::mul_lazy(a, b);", ""),
     "add": ("", "a = gl::add(a, b);", ""),
     "sub": ("", "a = gl::sub(a, b);", ""),
+    "add_lazy": ("", "a = gl::add_lazy(a, b);", ""),
+    "sub_lazy": ("", "a = gl::sub_lazy(a, b);", ""),
+    # the lazy GF(p^2) product, per call (its c1 folded into the chain)
+    "ext_mul_lazy": ("", "{ const gl::Ext e = gl::ext_mul_lazy({a, b}, {b, a}); "
+                         "a = e.c0 ^ e.c1; }", ""),
+    # a 128-bit product into an accumulator, a word into one, its reduction
+    "acc_mac": ("gl::Acc acc = gl::prod(a, b);", "acc = gl::acc_mac(acc, acc.lo, b);",
+                "a = acc.lo ^ acc.hi ^ acc.k;"),
+    "acc_add": ("gl::Acc acc = gl::prod(a, b);", "acc = gl::acc_add(acc, acc.hi, 0);",
+                "a = acc.lo ^ acc.hi ^ acc.k;"),
+    "reduce_acc_lazy": ("", "a = gl::reduce_acc_lazy({a, b, 3u});", ""),
     # one word of the internal layer: a * 2^9 plus the state's sum, reduced
     "shift_add_reduce_lazy": (
         "const gl::W tot = {uint32_t(b), uint32_t(b >> 32), 11u};",
@@ -50,15 +66,16 @@ FMA = ("IMAD",)
 ALU = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "IMNMX", "FSEL", "PLOP3",
        "IABS", "VIADD", "MOV", "ICMP", "P2R", "R2P", "FLO", "POPC", "BMSK", "SGXT")
 CUDA_BIN = Path("/usr/local/cuda/bin")
+MEMORY = ("LDL", "STL", "LDS", "STS", "LDG", "STG", "LDC", "ULDC")
 
 
 def tool(name: str) -> str:
     return str(CUDA_BIN / name) if (CUDA_BIN / name).exists() else name
 
 
-def micro_source() -> str:
+def micro_source(ops: dict) -> str:
     out = ['#include "goldilocks.cuh"']
-    for name, (setup, call, tail) in OPS.items():
+    for name, (setup, call, tail) in ops.items():
         for n in (0, CHAIN):
             body = "\n    ".join([call] * n)
             out.append(f"""extern "C" __global__ void k_{name}_{n}(uint64_t* x, const uint64_t* y) {{
@@ -88,11 +105,15 @@ def sass_functions(cubin: Path) -> dict[str, list[str]]:
     return funcs
 
 
-def pipe_counts(opcodes: list[str]) -> dict[str, int]:
+def pipe_counts(opcodes: list[str], memory: bool = False) -> dict[str, int]:
     c = {"fma": 0, "alu": 0, "other": 0}
+    if memory:
+        c.update({m.lower(): 0 for m in MEMORY})
     for op in opcodes:
         base = op.split(".")[0]
-        if base in FMA:
+        if memory and base in MEMORY:
+            c[base.lower()] += 1
+        elif base in FMA:
             c["fma"] += 1
         elif base in ALU:
             c["alu"] += 1
@@ -106,22 +127,32 @@ def main(root: Path) -> None:
     nvcc = tool("nvcc")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for lib in ("ntt", "poseidon2"):
+        for lib in ("ntt", "poseidon2", "quotient_sweep"):
             r = subprocess.run([nvcc, *FLAGS, "-cubin", "-Xptxas", "-v", "-I", str(csrc), "-o",
                                 str(tmp / f"{lib}.cubin"), str(csrc / f"{lib}.cu")],
                                capture_output=True, text=True)
             print(f"== nvcc -Xptxas -v csrc/{lib}.cu (rc {r.returncode})")
             for line in (r.stdout + r.stderr).splitlines():
                 if "Compiling entry" in line or "Used" in line or "spill" in line \
-                        or "error" in line:
+                        or "stack frame" in line or "error" in line:
                     print("  " + line.strip())
+        kernels = {}
+        for lib, pattern in (("quotient_sweep", "sweep"), ("ntt", "dit")):
+            for name, opcodes in sass_functions(tmp / f"{lib}.cubin").items():
+                if pattern in name:
+                    kernels[name] = {"total": len(opcodes), **pipe_counts(opcodes, memory=True)}
+        print(json.dumps({"sass_kernels": kernels}))
+        # the primitives this checkout's goldilocks.cuh has
+        header = (csrc / "goldilocks.cuh").read_text()
+        ops = {k: v for k, v in OPS.items()
+               if all(f" {f}(" in header for f in re.findall(r"gl::(\w+)\(", "".join(v)))}
         src = tmp / "micro.cu"
-        src.write_text(micro_source())
+        src.write_text(micro_source(ops))
         subprocess.run([nvcc, *FLAGS, "-cubin", "-I", str(csrc), "-o", str(tmp / "micro.cubin"),
                         str(src)], check=True)
         funcs = sass_functions(tmp / "micro.cubin")
     per_op = {}
-    for name in OPS:
+    for name in ops:
         full, base = pipe_counts(funcs[f"k_{name}_{CHAIN}"]), pipe_counts(funcs[f"k_{name}_0"])
         per_op[name] = {k: (full[k] - base[k]) / CHAIN for k in full}
     print(json.dumps({"sass_per_op": per_op}))

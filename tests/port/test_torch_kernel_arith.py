@@ -10,9 +10,16 @@ Test-side models, used nowhere in the package:
   output, and the permutation with each layer adding the next round's
   constants and values left lazy in between (csrc/poseidon2.cu), against
   the plain versions of hashes/poseidon2.py;
+- the lazy add and subtract of goldilocks.cuh, the small wide product,
+  the accumulator of 128-bit products reduced once and the lazy GF(p^2)
+  product the sweep (csrc/quotient_sweep.cu) runs on, and
+  the scalar-table entries only that kernel reads;
 - the forward NTT's pass plan (csrc/ntt.cu): which index bits each pass
   transforms and with which twiddles (ntt.py `_forward_tables`), composed
-  and checked against `fft_plain`, and the tile layouts' bank spread.
+  and checked against `fft_plain`, and the tile layouts' bank spread;
+- the inverse NTT's passes, the mirror (ntt.py `inverse_pass_plan`,
+  `_inverse_tables`), composed and checked against `ifft_plain` and the
+  JAX package's inverse, and its tile layouts' bank spread.
 """
 
 import re
@@ -116,6 +123,126 @@ def test_reduce_of_a_hi_lo_pair(hi, lo):
 def test_lazy_product(a, b):
     prod = a * b
     assert reduce128_lazy(prod >> 64, prod & M64) % P == prod % P
+
+
+def add_lazy(a: int, b: int) -> int:
+    """gl::add_lazy: a carry puts eps back, at most twice."""
+    s = a + b
+    if s > M64:
+        s = (s & M64) + EPS
+        if s > M64:
+            s = (s & M64) + EPS
+    assert s <= M64
+    return s
+
+
+def sub_lazy(a: int, b: int) -> int:
+    """gl::sub_lazy: a borrow takes eps off, at most twice."""
+    d = (a - b) & M64
+    if a < b:
+        e = (d - EPS) & M64
+        d = (e - EPS) & M64 if d < EPS else e
+    return d
+
+
+def wmul32(a: int, c: int) -> int:
+    """gl::wmul32: a * c as lo + hi * 2^32, in 96 bits."""
+    lo = (a & EPS) * c
+    mid = (lo >> 32) + (a >> 32) * c
+    assert mid <= M64
+    return (mid << 32) | (lo & EPS)
+
+
+def mul_lazy(a: int, b: int) -> int:
+    prod = a * b
+    return reduce128_lazy(prod >> 64, prod & M64)
+
+
+def reduce_acc_lazy(x: int) -> int:
+    """gl::reduce_acc_lazy: an accumulator lo + hi 2^64 + k 2^128 (k < 2^31
+    carries) as reduce128_lazy with k added to hi's top half (2^128 =
+    -2^32)."""
+    lo, hi, k = x & M64, (x >> 64) & M64, x >> 128
+    assert k < 1 << 31
+    hh, hl = (hi >> 32) + (k << 32), hi & EPS
+    t0 = (lo - hh) & M64
+    if lo < hh:
+        assert t0 > EPS
+        t0 -= EPS
+    t2 = t0 + hl * EPS
+    if t2 > M64:
+        t2 = (t2 & M64) + EPS
+    assert t2 <= M64
+    return t2
+
+
+def ext_mul_lazy(a, b):
+    """gl::ext_mul_lazy: c1 the two 128-bit products summed and reduced
+    once; c0 the 128-bit a0 b0 plus 7 times the lazy a1 b1."""
+    c0 = reduce_acc_lazy(a[0] * b[0] + wmul32(mul_lazy(a[1], b[1]), 7))
+    return c0, reduce_acc_lazy(a[0] * b[1] + a[1] * b[0])
+
+
+@settings(max_examples=400, deadline=None)
+@given(WORDS, WORDS)
+@example(M64, M64)
+@example(M64, 1)
+@example(0, M64)
+@example(P - 1, M64)
+@example(EPS, M64)
+def test_lazy_add_and_sub_take_any_words(a, b):
+    assert add_lazy(a, b) % P == (a + b) % P
+    assert sub_lazy(a, b) % P == (a - b) % P
+    assert 0 <= sub_lazy(a, b) <= M64
+
+
+@settings(max_examples=400, deadline=None)
+@given(WORDS, WORDS, WORDS, WORDS)
+@example(M64, M64, M64, M64)
+@example(P - 1, P - 1, P - 1, P - 1)
+@example(M64, M64, M64, 0)
+@example(M64, 0, M64, M64)
+@example(0, 1, 0, 1)
+def test_lazy_ext_product(a0, a1, b0, b1):
+    assert wmul32(a1, 7) == 7 * a1
+    c0, c1 = ext_mul_lazy((a0, a1), (b0, b1))
+    assert c0 % P == (a0 * b0 + 7 * a1 * b1) % P
+    assert c1 % P == (a0 * b1 + a1 * b0) % P
+
+
+@settings(max_examples=100, deadline=None)
+@given(st.lists(st.tuples(WORDS, WORDS), min_size=1, max_size=300))
+@example([(M64, M64)] * 300)
+@example([(P - 1, P - 1)] * 2)
+def test_product_accumulator(pairs):
+    """gl::Acc: 128-bit products summed with their carries, reduced once
+    (the sweep's sums of products); the words stay below 2^64."""
+    total = sum(a * b for a, b in pairs)
+    r = reduce_acc_lazy(total)
+    assert r <= M64 and r % P == total % P
+
+
+def test_sweep_kernel_entries_of_the_scalar_table():
+    """The entries after the plain version's: (beta.c0 k_i, beta.c1 k_i)
+    per copy column, then 7 alpha^t.c1 per alpha power."""
+    from boojum_tpu_torch.circuits import build_general_lookup
+    from boojum_tpu_torch.field import extension as ext_f
+    from boojum_tpu_torch.prover import quotient_sweep as qs
+    from boojum_tpu_torch.prover.setup import build_selector_tree
+
+    asm = build_general_lookup()[0].into_assembly()
+    _tree, paths = build_selector_tree(asm.gates)
+    Ct = asm.num_copy_cols_total
+    plan = qs.SweepPlan(asm.gates, paths, asm.geometry, Ct, "cpu", asm.lookup_params)
+    alpha, beta, ks = (P - 3, 5), (P - 7, 11), [P - 1 - i for i in range(Ct)]
+    table = [int(v) for v in gf.to_numpy(
+        qs.sweep_table(plan, alpha, beta, (13, 17), ks, "cpu", (19, 23), (29, 31)))]
+    assert len(table) == plan.table_len
+    tail = table[plan.table_len - 2 * Ct - plan.num_alpha:]
+    assert tail[:2 * Ct] == [b * k % P for k in ks for b in beta]
+    pows = ext_f.powers_s(alpha, plan.num_alpha)
+    assert tail[2 * Ct:] == [7 * a1 % P for _a0, a1 in pows]
+    assert table[4 + Ct + plan.num_alpha:4 + Ct + 2 * plan.num_alpha] == [a1 for _a0, a1 in pows]
 
 
 # -- Poseidon2 layers (poseidon2.cu) -----------------------------------------
@@ -310,6 +437,98 @@ def test_tile_exchanges_spread_over_the_banks(k, strided):
     first = k % 3 or 3
     rounds = [(k - first, first)] + [(c, 3) for c in range(k - first - 3, -1, -3)]
     threads = (1 << s_bits) // 8
+    for c, rb in rounds:
+        lo = tb + c
+        for j in range(8 >> rb):
+            u = np.arange(threads) + j * threads
+            for e in range(1 << rb):
+                i = (u & ((1 << lo) - 1)) | (e << lo) | ((u >> lo) << (lo + rb))
+                slots = (_swz(i) % 16).reshape(-1, 16)
+                assert all(len(set(h)) == 16 for h in slots), (c, rb, j, e)
+
+
+# -- the inverse NTT's passes (ntt.cu) ---------------------------------------
+
+
+@pytest.mark.parametrize("log_n", range(1, 32))
+def test_inverse_pass_plan_limits(log_n):
+    plan = ntt.inverse_pass_plan(log_n)
+    assert sum(plan) == log_n and min(plan) >= 1
+    assert plan[0] <= ntt.MAX_LAST_PASS  # the contiguous pass, on the low bits
+    lo = plan[0]
+    for k in plan[1:]:
+        assert k <= ntt.MAX_STRIDED_PASS and lo >= 3  # 8 adjacent columns a tile
+        lo += k
+    assert len(plan) == (1 if log_n <= 11 else 2 if log_n <= 21 else 3)
+    if log_n == 20:
+        assert plan == (11, 9)
+
+
+def compose_inverse_passes(a: torch.Tensor, log_n: int) -> torch.Tensor:
+    """The inverse kernel's passes on (B, n) rows: pass (lo, k) multiplies
+    every 2^(lo + k) block by its pre table (strided), then runs DIT stages
+    on index bits lo .. lo + k - 1, the pair (i0, i0 + 2^b) of position bit b
+    multiplying its odd element by heap[2^(k-1) + ((i0 mod 2^b) << (k - 1 -
+    b))]; a single pass multiplies by 1/n at its store."""
+    plan, heap, pre, _c_plan, _n_inv = ntt._inverse_tables(log_n, "cpu")
+    B, n = a.shape
+    x, lo, used = a, 0, 0
+    for k in plan:
+        v = x.reshape(B, -1, 1 << (lo + k))
+        if lo:
+            m = 1 << (lo + k)
+            v = gf.mul(v, pre[used:used + m])
+            used += m
+        v = v.reshape(B, -1, 1 << k, 1 << lo)
+        for b in range(k):
+            h = 1 << b
+            v = v.reshape(B, v.shape[1], -1, 2, h, 1 << lo)
+            u, w = v[:, :, :, 0], v[:, :, :, 1]
+            tw = heap[(1 << (k - 1)) + (torch.arange(h) << (k - 1 - b))]
+            w = gf.mul(w, tw[:, None])
+            v = torch.stack([gf.add(u, w), gf.sub(u, w)], dim=3)
+        x = v.reshape(B, n)
+        lo += k
+    assert used == (pre.numel() if len(plan) > 1 else 0)
+    if len(plan) == 1:
+        x = gf.mul(x, ntt.get_ntt_context(log_n, "cpu").n_inv)
+    return x
+
+
+@pytest.mark.parametrize("log_n", range(1, 15))
+def test_inverse_passes_compose_to_the_transform(log_n):
+    rng = np.random.default_rng(50 + log_n)
+    a = gf.from_numpy(rng.integers(0, P, size=(2, 1 << log_n), dtype=np.uint64))
+    assert torch.equal(compose_inverse_passes(a, log_n), ntt.ifft_plain(a))
+
+
+@pytest.mark.parametrize("log_n", [5, 12, 13])
+def test_inverse_passes_match_the_jax_inverse(log_n):
+    jnp = pytest.importorskip("jax.numpy")
+    from boojum_tpu.ntt import ntt as jntt
+
+    rng = np.random.default_rng(70 + log_n)
+    words = rng.integers(0, P, size=(2, 1 << log_n), dtype=np.uint64)
+    want = np.asarray(jntt.ifft_bitreversed_to_natural_xla(jnp.asarray(words)))
+    got = compose_inverse_passes(gf.from_numpy(words), log_n)
+    np.testing.assert_array_equal(gf.to_numpy(got), want)
+
+
+@pytest.mark.parametrize("k,strided", [(k, True) for k in range(6, 11)]
+                         + [(k, False) for k in range(6, 12)])
+def test_inverse_tile_exchanges_spread_over_the_banks(k, strided):
+    """The inverse's rounds, bottom up ((0, 3), (3, 3), ..., the rest last)
+    on the forward's tile layouts: at every exchange the 16 threads of a
+    half-warp touch 16 different 8-byte bank pairs."""
+    tb = 3 if strided else 0
+    s_bits = k + (3 if strided else max(0, 11 - k))
+    threads = (1 << s_bits) // 8
+    rounds, c = [], 0
+    while c < k:
+        rounds.append((c, min(3, k - c)))
+        c += 3
+    first = k % 3 or 3
+    assert rounds[-1] == (k - first, first)  # the forward's first round
     for c, rb in rounds:
         lo = tb + c
         for j in range(8 >> rb):

@@ -6,6 +6,8 @@ the CPU, materialized and streamed; kernel B8 (BabyBear Poseidon2) and the
 BabyBear fma, xor4 and mini-STARK proofs at 2^10 likewise. Marked `cuda`: they skip where no card is present and run on the
 card with `python -m pytest tests/port/test_torch_kernels.py`."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -180,6 +182,97 @@ def test_sweep_entry_kernel_matches_plain(dev, entry):
     built = launch(*args)
     for g, w in zip(qs.sweep(*built), qs.sweep_plain(*built)):
         _same(g, w)
+
+
+# challenges of each fill: the sweep's lazy sums see their largest words
+# with every operand and challenge at p - 1 or at least 2^63
+_CHALLENGES = {"random": (3, 7, 13, 19, 29), "p-1": (gf.P - 1,) * 5, "zero": (0,) * 5,
+               "high": tuple((1 << 63) + 1000 * i for i in range(5))}
+
+
+# every instantiation of csrc/quotient_sweep.cu (rows a thread, threads a
+# block, sub-threads a row): the extreme-word tests run each, since at their
+# sizes launch_geometry would pick the first alone
+_GEOMETRIES = [(1, 256, 2), (2, 256, 1), (1, 128, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_circuit(circuit):
+    cs = {"fma": lambda: build_fma(8),
+          "sha256": lambda: build_sha256(message=b"abc")[0],
+          "general": lambda: build_general_lookup()[0],
+          "witness": lambda: build_zero_check_witness()[0]}[circuit]()
+    return cs.into_assembly()
+
+
+@pytest.mark.parametrize("geometry", _GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("fill", ["random", "p-1", "zero", "high"])
+@pytest.mark.parametrize("circuit", ["fma", "sha256", "general", "witness"])
+def test_sweep_kernel_matches_plain_on_extreme_words(dev, monkeypatch, circuit, fill,
+                                                     geometry):
+    """The whole sweep with every operand and challenge of one kind, in each
+    launch geometry, and at the random fill also at 2^7 rows, fewer than one
+    block takes."""
+    monkeypatch.setattr(qs, "launch_geometry", lambda n, parts: geometry)
+    asm = _sweep_circuit(circuit)
+    _tree, paths = build_selector_tree(asm.gates)
+    Ct = asm.num_copy_cols_total
+    lp = asm.lookup_params if asm.lookups_enabled else None
+    plan = qs.SweepPlan(asm.gates, paths, asm.geometry, Ct, dev, lp)
+    rng = np.random.default_rng(5)
+    a, b, g, lb, lg = _CHALLENGES[fill]
+    for n in ((1 << 7, 1 << 11) if fill == "random" else (1 << 11,)):
+        args = [_filled(rng, fill, r, n, device=dev)
+                for r in (plan.num_wit_rows, plan.num_setup_cols, plan.num_s2_rows, 2)]
+        args += [_filled(rng, fill, n, device=dev) for _ in range(3)]
+        table = qs.sweep_table(plan, (a, a), (b, b), (g, g), [a] * Ct, dev, (lb, lb),
+                               (lg, lg))
+        for got, want in zip(qs.coset_terms(plan, *args, table),
+                             qs.coset_terms_plain(plan, *args, table)):
+            _same(got, want)
+
+
+@pytest.mark.parametrize("geometry", _GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("fill", ["p-1", "zero", "high"])
+@pytest.mark.parametrize("entry", ["gate_terms_fn", "cp_quotient", "lookup_quotient",
+                                   "lookup_quotient_general"])
+def test_sweep_entry_kernel_matches_plain_on_extreme_words(dev, monkeypatch, entry, fill,
+                                                           geometry):
+    monkeypatch.setattr(qs, "launch_geometry", lambda n, parts: geometry)
+    rng = np.random.default_rng(6)
+    n = 1 << 11
+    r = lambda *shape: _filled(rng, fill, *shape, device=dev)  # noqa: E731
+    a, b, g, lb, lg = _CHALLENGES[fill]
+    pows = lambda k: [(a, a)] * k  # noqa: E731
+    if entry == "gate_terms_fn":
+        asm = build_zero_check_witness()[0].into_assembly()
+        _tree, paths = build_selector_tree(asm.gates)
+        launch = qs.gate_terms_fn(asm.gates, paths, asm.geometry, dev).launch
+        args = (r(8, n), r(4, n), r(6, n), pows(qs.num_gate_terms(asm.gates, asm.geometry)))
+    elif entry == "cp_quotient":
+        launch = qs.cp_quotient_launch
+        args = (r(4, n), r(2, n), r(8, n), r(8, n), r(n), r(n), (b, b), (g, g), pows(3),
+                [a] * 8, 4)
+    elif entry == "lookup_quotient":
+        launch = qs.lookup_quotient_launch
+        args = (r(18, n), r(32, n), r(n), r(5, n), r(n), (lb, lb), (lg, lg), pows(9), 8, 4)
+    else:
+        launch = qs.lookup_quotient_general_launch
+        args = (r(6, n), r(6, n), r(n), r(4, n), r(n), r(n), (lb, lb), (lg, lg), pows(3),
+                2, 3)
+    built = launch(*args)
+    for got, want in zip(qs.sweep(*built), qs.sweep_plain(*built)):
+        _same(got, want)
+
+
+@pytest.mark.parametrize("log_n", [19, 22, 23])
+def test_inverse_ntt_at_a_quotient_row(dev, log_n):
+    """B2 at the single rows of Q·n words the provers interpolate the
+    quotient from (sha256 2^19, fma 2^22, general and witness 2^23): three
+    passes from 2^22."""
+    rng = np.random.default_rng(log_n)
+    a = _rand(rng, 1, 1 << log_n, device=dev)
+    _same(ntt.ifft_bitreversed_to_natural(a), ntt.ifft_plain(a))
 
 
 def test_sweep_rejects_a_short_setup_stack_on_the_card(dev):
