@@ -119,13 +119,18 @@ def bench_message(num_bytes: int) -> bytes:
     return bytes(i % 255 for i in range(num_bytes))
 
 
+def sha256_capacity(num_bytes: int) -> int:
+    """bench.py's constraint-system capacity for sha256 over num_bytes."""
+    return 1 << max(17, (num_bytes // 8192).bit_length() + 16)
+
+
 def build_sha256(num_bytes: int = 8192, message: bytes | None = None):
     """sha256 of `message` (default: bench.py's message of num_bytes) over
     range-checked input bytes. Returns (cs, the 32 digest byte variables)."""
     if message is None:
         message = bench_message(num_bytes)
-    capacity = 1 << max(17, (len(message) // 8192).bit_length() + 16)
-    cs = ConstraintSystem(SHA256_GEOMETRY, capacity, lookup_params=SHA256_LOOKUP)
+    cs = ConstraintSystem(SHA256_GEOMETRY, sha256_capacity(len(message)),
+                          lookup_params=SHA256_LOOKUP)
     digest = sha256(cs, allocate_u8_input(cs, message))
     return cs, digest
 

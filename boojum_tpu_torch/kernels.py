@@ -51,7 +51,11 @@ KERNELS = {
         "quotient_sweep",
         "boojum_tpu/prover/pallas_sweep.py:537 build_coset_terms",
     ),
-    "fri_fold": ("fri_fold", "boojum_tpu/prover/pallas_sweep.py:858 _fold_body"),
+    "fri_fold": (
+        "fri_fold",
+        "boojum_tpu/prover/pallas_sweep.py:858 _fold_body, k rounds as "
+        "boojum_tpu/prover/fri.py:199 _fri_fold_fn",
+    ),
     "poseidon2_bb_permute": (
         "poseidon2_bb", "boojum_tpu/hashes/poseidon2_bb.py:208 _perm_kernel"
     ),
@@ -81,6 +85,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U64 = ctypes.c_uint64
 _IP = ctypes.POINTER(ctypes.c_int)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
 _SIGNATURES = {
     "ntt": {
         # in, out, scale, L, heap, post, plan, passes, log_n, rows, stream
@@ -104,7 +109,9 @@ _SIGNATURES = {
                               _I, _I, _I, _P, _P, _P),
     },
     "fri_fold": {
-        "bt_fri_fold": (_P, _P, _LL, _U64, _U64, _P, _P, _P, _P),
+        # c0, c1, outputs, rounds, 1/x, table shift, sub-challenges (c0,
+        # c1, 7 c1 each), 2^-k, o0, o1, stream
+        "bt_fri_fold_oracle": (_P, _P, _LL, _I, _P, _I, _U64P, _U64, _P, _P, _P),
     },
     "poseidon2_bb": {
         "bt_poseidon2_bb_set_constants": (_P, _I),
@@ -206,6 +213,11 @@ def ptr(t: torch.Tensor | None):
 def int_array(values):
     """A C int array of `values`, for an argument declared int*."""
     return (ctypes.c_int * len(values))(*values)
+
+
+def u64_array(values):
+    """A C uint64_t array of `values`, for an argument declared uint64_t*."""
+    return (ctypes.c_uint64 * len(values))(*values)
 
 
 def stream(device: torch.device):

@@ -23,11 +23,16 @@ Phases, each printing its seconds:
      (paired leaves), the node compression of the widest layer and the bare
      permutation of as many (N, 16) states as that oracle has leaves; the
      inverse NTT (B2) also at each prove's quotient row of Q·n words (the
-     one row the prover interpolates the quotient from); and the forward
+     one row the prover interpolates the quotient from); the FRI fold (B7)
+     twice a path: its first oracle (one launch, the schedule's first entry
+     from the LDE length) and its whole chain (every entry of the
+     schedule, one launch each, at its size); and the forward
      and inverse NTT (B1-B3) at 2^17, 2^21, 2^22 and 2^23, where their pass
      plans change. The bound of the Goldilocks rows is the busier of the
      FMA and ALU pipes, priced by the SASS of each field operation, for the
-     lesser of the plain version's operations and the kernel's own;
+     lesser of the plain version's operations and the kernel's own. Each
+     row's launches_per_call is the wrapper's count over its first call;
+     a fold row fails unless that is its schedule's count;
   4. small circuits set up and proved on the card and on the CPU: fma at
      2^10, the xor4 lookup circuit at 2^9, sha256(b"abc") at 2^14, the
      general-lookup circuit at 2^9 and the witness-column circuit at 2^5,
@@ -149,6 +154,12 @@ GL_SWEEP_OPS = {"mul_lazy": GL_MUL, "sub": GL_SUB_CANON,
                 "add_lazy": (2.125, 10.0), "sub_lazy": (2.25, 10.0),
                 "ext_mul_lazy": (29.75, 56.875), "acc_mac": (5.5, 6.25),
                 "acc_add": (0.5, 4.25), "reduce_acc_lazy": (2.0, 14.0)}
+# The sequences of B7's own arithmetic (csrc/fri_fold.cu), for its
+# bound_own_ms: one pair of the first round (canonical words) and of a later
+# round (lazy words), four reductions each; mul_lazy squares 1/x, gl::mul
+# makes each output canonical times 2^-k.
+GL_FOLD_OPS = {"fold_pair_first": (65.25, 94.375), "fold_pair_lazy": (65.625, 106.5),
+               "mul_lazy": GL_MUL, "mul": GL_MUL_CANON}
 # B8 (csrc/poseidon2_bb.cu) counts by pipe: multiply-adds issue to the FMA
 # pipe, adds and min/max to the ALU pipe, each at INT32_PER_SM_CLOCK, so its
 # bound is the busier pipe. A Montgomery product is three multiply-adds (a
@@ -164,7 +175,7 @@ PORT_FUNCTIONS = {
     "dif_pass": "ntt_forward/ntt_lde", "dit_pass": "ntt_inverse",
     "leaf_hash": "poseidon2_leaf", "node_hash": "poseidon2_node",
     "permute_batch": "poseidon2_permute", "absorb_block": "poseidon2_absorb",
-    "sweep": "quotient_sweep", "fold": "fri_fold",
+    "sweep": "quotient_sweep", "fold_oracle": "fri_fold",
     "permute_bb": "poseidon2_bb_permute", "leaf_bb": "poseidon2_bb_leaf",
     "node_bb": "poseidon2_bb_node",
 }
@@ -268,6 +279,47 @@ def own_ops(fn, ops: float):
     arithmetic for the same function (the NTT, B6)."""
     fn.own_ops = ops
     return fn
+
+
+def fold_rounds(fn, ops: float, nbytes: int, launches: int):
+    """Mark a fold case (B7) with the count of the same rounds done one at a
+    time by fold_once_plain: the busier pipe's instructions and the bytes
+    (each round's table read), for its bound_rounds_ms; and the launches its
+    schedule needs, which one call must make."""
+    fn.rounds_bound = (ops, nbytes)
+    fn.schedule_launches = launches
+    return fn
+
+
+def fold_kernel_ops(N: int, k: int, max_k: int) -> float:
+    """Busier-pipe instructions of B7's launches for k rounds from N points
+    (a launch takes at most max_k): each launch's first-round pairs and
+    later pairs, a squaring of 1/x for each later pair (and a later launch
+    of a split entry squares its first table words once a round before),
+    two products by 2^-k an output, at GL_FOLD_OPS."""
+    ops = {k_: 0 for k_ in GL_FOLD_OPS}
+    done = 0
+    while done < k:
+        kc = min(max_k, k - done)
+        size = N >> done
+        later = sum(size >> (r + 1) for r in range(1, kc))
+        ops["fold_pair_first"] += size // 2
+        ops["fold_pair_lazy"] += later
+        ops["mul_lazy"] += later + done * (size // 2)
+        ops["mul"] += 2 * (size >> kc)
+        done += kc
+    return max(sum(v * GL_FOLD_OPS[k_][pipe] for k_, v in ops.items()) for pipe in (0, 1))
+
+
+def fold_rounds_ops(torch, gf, fri, N: int, k: int) -> float:
+    """Busier-pipe instructions of k rounds of fold_once_plain from N points:
+    one pair's field operations, counted, times the k rounds' pairs."""
+    with FieldOpCounter(gf) as ops:
+        x = torch.zeros(2, dtype=torch.int64)
+        fri.fold_once_plain(x, x, (3, 5), x[:1])
+    pairs = sum(N >> (r + 1) for r in range(k))
+    ops.muls, ops.adds, ops.subs = (v * pairs for v in (ops.muls, ops.adds, ops.subs))
+    return ops.pipe_ops()
 
 
 def timed(torch, fn, reps: int, warm_up: bool = True) -> float:
@@ -383,16 +435,58 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
              4 * (8 * M + 4 * M), f"({M}, 8) -> ({M // 2}, 8)", b8_ops(M // 2, 12 * M)),
         ]
 
-    def path_cases(asm, log_n, L):
+    def fold_cases(n, N, final_degree):
+        """B7's two rows of a path whose LDE has N points: the first oracle
+        (the schedule's first entry from N points) and the whole chain
+        (every entry, each from the last one's result), with the path's
+        entry tables and sub-challenges ch, ch^2, ... of arbitrary
+        challenges. The bytes: each entry's codeword in, result out and
+        first-round table; of the one-round-at-a-time count, every round's
+        table."""
+        schedule = fri.fold_schedule(n, final_degree)
+        tables = fri.fold_entry_tables(N.bit_length() - 1, schedule, dev)
+        subs = [fri.sub_challenges((3 + r, 5 + r), k) for r, k in enumerate(schedule)]
+        c0, c1 = rand(N), rand(N)
+
+        def chain(fold, entries):
+            a, b = c0, c1
+            for sub, t in zip(subs[:entries], tables):
+                a, b = fold(a, b, sub, t)
+            return a, b  # timed without a stack of the two
+
+        out = []
+        for label, entries in (("first oracle", 1), ("chain", len(schedule))):
+            nbytes = rounds_bytes = rounds_ops = kernel_ops = launches = 0
+            size = N
+            for k in schedule[:entries]:
+                nbytes += w * (2 * size + 2 * (size >> k) + size // 2)
+                rounds_bytes += w * (2 * size + 2 * (size >> k)
+                                     + sum(size >> (r + 1) for r in range(k)))
+                rounds_ops += fold_rounds_ops(torch, gf, fri, size, k)
+                kernel_ops += fold_kernel_ops(size, k, fri.MAX_FOLD_K)
+                launches += -(-k // fri.MAX_FOLD_K)
+                size >>= k
+            ks = ",".join(map(str, schedule[:entries]))
+            out.append(("fri_fold",
+                        own_ops(fold_rounds(lambda e=entries: chain(fri.fold_oracle, e),
+                                            rounds_ops, rounds_bytes, launches),
+                                kernel_ops),
+                        lambda e=entries: chain(fri.fold_oracle_plain, e),
+                        nbytes, f"{label}: {N} -> {size} (k = {ks})"))
+        return out
+
+    def path_cases(asm, log_n, cfg):
         """(name, kernel call, plain call, bytes moved, shape) of each kernel
         on random inputs of the shapes the prove of `asm`'s circuit at 2^log_n
-        rows gives it: the widest call of each kernel on the prove (the
-        witness oracle's commit for the inverse NTT and LDE, and for the
-        leaf hash where the prover materializes, else the setup's commit;
-        the setup oracle's coset evaluation for the forward NTT; the first
-        FRI fold; where the prover streams, its widest absorbed block and
-        the (N, 12) sponge states for B4)."""
+        rows with proof config `cfg` gives it: the widest call of each kernel
+        on the prove (the witness oracle's commit for the inverse NTT and
+        LDE, and for the leaf hash where the prover materializes, else the
+        setup's commit; the setup oracle's coset evaluation for the forward
+        NTT; the FRI fold's first oracle and its chain; where the prover
+        streams, its widest absorbed block and the (N, 12) sponge states
+        for B4)."""
         n = 1 << log_n
+        L = cfg.fri_lde_factor
         N = n * L
         tree, sel_paths = build_selector_tree(asm.gates)
         Q = quotient_degree_for(asm, tree)
@@ -413,7 +507,6 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
             raise AssertionError("no materialized column commit on this path")
         Cl = Cs if streams else Cw  # the widest leaf-hash commit
         leaves, layer = rand(Cl, N), rand(N, 4)
-        c0, c1, inv_x = rand(N), rand(N), rand(N // 2)
         sweep_rows = Cw + Cs + C2 + 2 + 3
         b4 = []
         if streams:
@@ -469,11 +562,7 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
              lambda: torch.stack(qs.coset_terms_plain(plan, *sweep_args, table)),
              w * (sweep_rows * n + table.numel() + 2 * n),
              f"one coset of 2^{log_n} rows: {Cw} witness, {Cs} setup, {C2} stage-2 rows"),
-            ("fri_fold",
-             lambda: torch.stack(fri.fold_once(c0, c1, (3, 5), inv_x)),
-             lambda: torch.stack(fri.fold_once_plain(c0, c1, (3, 5), inv_x)),
-             w * (2 * N + N // 2 + N), f"{N} -> {N // 2}"),
-        ]
+        ] + fold_cases(n, N, cfg.fri_final_degree)
 
     def entry_cases():
         """(entry, path, kernel call, plain call, bytes moved, shape) of each
@@ -540,8 +629,7 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
 
     cases = [(name, None, path, kern, plain, nbytes, shape, None)
              for path, asm, log_n, cfg in paths
-             for name, kern, plain, nbytes, shape in path_cases(asm, log_n,
-                                                                 cfg.fri_lde_factor)]
+             for name, kern, plain, nbytes, shape in path_cases(asm, log_n, cfg)]
     cases += [(name, None, SIZES_PATH, kern, plain, nbytes, shape, None)
               for name, kern, plain, nbytes, shape in size_cases()]
     cases += [("quotient_sweep", entry, path, kern, plain, nbytes, shape, None)
@@ -553,10 +641,14 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
     rows = []
     for name, entry, path, kern, plain, nbytes, shape, int_ops in cases:
         t0 = time.perf_counter()
+        before = K.LAUNCHES[name]
         got = kern()
+        per_call = K.LAUNCHES[name] - before
         # B4 and B5 price the internal layer's power-of-two products as shifts
         with FieldOpCounter(gf, shifts=name in GL_POSEIDON2) as ops:
             want = plain()
+        if isinstance(got, tuple):  # the fold's two components
+            got, want = torch.stack(got), torch.stack(want)
         torch.cuda.synchronize()
         err = max_abs_err(gf, got, want)
         del got, want
@@ -589,6 +681,7 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None,
+            "launches_per_call": per_call,
         }
         if int_ops is None:
             row["bound_canonical_ms"] = max(
@@ -596,14 +689,24 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
         if own is not None:  # the plain count's and the kernel's own bounds
             row["bound_plain_ms"] = max(bound_bytes, plain_ops / int_ops_per_s * 1e3)
             row["bound_own_ms"] = max(bound_bytes, own / int_ops_per_s * 1e3)
+        rounds = getattr(kern, "rounds_bound", None)
+        if rounds is not None:  # B7: the same rounds one at a time, each with its table
+            row["bound_rounds_ms"] = max(rounds[1] / MEM_BYTES_PER_S * 1e3,
+                                         rounds[0] / int_ops_per_s * 1e3)
         rows.append(row)
         extra = "".join(f" {k[6:-3]} {row[k]:.3f}" for k in (
-            "bound_canonical_ms", "bound_plain_ms", "bound_own_ms") if k in row)
+            "bound_canonical_ms", "bound_plain_ms", "bound_rounds_ms", "bound_own_ms")
+            if k in row)
         log(f"  {entry or name:23s} {shape:40s} err={err} kernel {ms:.3f} ms  plain "
             f"{plain_ms:.1f} ms  bound {row['bound_ms']:.3f} ms "
-            f"({row['bound_by']}{extra})  [{time.perf_counter() - t0:.1f} s]")
+            f"({row['bound_by']}{extra})  launches {per_call}  "
+            f"[{time.perf_counter() - t0:.1f} s]")
         if err:
             raise AssertionError(f"kernel {name} ({path}) disagrees with its plain version")
+        want_launches = getattr(kern, "schedule_launches", None)
+        if want_launches is not None and per_call != want_launches:
+            raise AssertionError(f"kernel {name} ({path}, {shape}): {per_call} launches "
+                                 f"a call, not the schedule's {want_launches}")
     return rows
 
 
@@ -700,9 +803,10 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
     checked the kernels at. `streams` says whether the prover's rule must
     stream this path's commits: the absorb kernel then launches on the
     prove, and otherwise never on the path. A BabyBear path launches B8 and
-    no Goldilocks kernel; a Goldilocks path no B8."""
+    no Goldilocks kernel; a Goldilocks path no B8, and the fold once per
+    committed FRI oracle."""
     from boojum_tpu_torch import kernels as K
-    from boojum_tpu_torch.prover import generate_setup, prove
+    from boojum_tpu_torch.prover import fri, generate_setup, prove
 
     K.reset_launches()
     t = time.perf_counter()
@@ -754,6 +858,12 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
         raise AssertionError(f"{label}: the other field's kernels launched: {foreign}")
     if not streams and launches["poseidon2_absorb"]:
         raise AssertionError(f"{label}: the commits streamed below the threshold")
+    if asm.field != "babybear":  # B7: one launch per committed oracle
+        schedule = fri.fold_schedule(asm.trace_len, cfg.fri_final_degree)
+        folds = sum(-(-k // fri.MAX_FOLD_K) for k in schedule)
+        if on_prove["fri_fold"] != folds:
+            raise AssertionError(f"{label}: {on_prove['fri_fold']} fold launches on the "
+                                 f"prove, not {folds} for the schedule {schedule}")
     return dict(asm=asm, setup=setup, launches=launches, launches_on_prove=on_prove,
                 synthesis_s=synth_s, setup_s=setup_s, prove_cold_s=prove_s,
                 rounds_cold_s=timings, verify_s=verify_s, peak_device_memory_gib=peak)
@@ -1098,8 +1208,8 @@ def main() -> int:
         row["launches_by_path"] = by_path
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "entry", "path", "shape",
-            "bound_canonical_ms", "bound_plain_ms", "bound_own_ms",
-            "launches_by_path")
+            "bound_canonical_ms", "bound_plain_ms", "bound_rounds_ms", "bound_own_ms",
+            "launches_per_call", "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -5,13 +5,15 @@ with the CUDA toolkit (no card needed).
     python3 scripts/torch_kernel_sass.py [ROOT]
 
 ROOT holds the `boojum_tpu_torch` package (default: this checkout). Prints
-1. `nvcc -Xptxas -v` for csrc/ntt.cu, csrc/poseidon2.cu and
-   csrc/quotient_sweep.cu: each kernel's registers, stack frame, shared
-   memory and spills;
+1. `nvcc -Xptxas -v` for csrc/ntt.cu, csrc/poseidon2.cu,
+   csrc/quotient_sweep.cu and csrc/fri_fold.cu: each kernel's registers,
+   stack frame, shared memory and spills;
 2. one JSON line {"sass_kernels": ...}: for each kernel of
-   csrc/quotient_sweep.cu and each inverse NTT pass of csrc/ntt.cu, its SASS
-   instructions by class (the pipes below, and the local, shared and global
-   loads and stores), so a stack-resident array shows as LDL/STL;
+   csrc/quotient_sweep.cu, each inverse NTT pass of csrc/ntt.cu and each
+   fold of csrc/fri_fold.cu (one a number of rounds K: a thread's whole
+   work for one output), its SASS instructions by class (the pipes below,
+   and the local, shared and global loads and stores), so a stack-resident
+   array shows as LDL/STL;
 3. one JSON line {"sass_per_op": ...}: the SASS instructions of each field
    primitive of csrc/goldilocks.cuh, by pipe. Each primitive is chained 8
    times in a micro-kernel, and the same kernel with no call (same loads
@@ -51,6 +53,18 @@ OPS = {
     "acc_add": ("gl::Acc acc = gl::prod(a, b);", "acc = gl::acc_add(acc, acc.hi, 0);",
                 "a = acc.lo ^ acc.hi ^ acc.k;"),
     "reduce_acc_lazy": ("", "a = gl::reduce_acc_lazy({a, b, 3u});", ""),
+    # one pair of csrc/fri_fold.cu's fold, as the kernel writes it: the
+    # first round's (canonical words: the carry-chain subtract) and a later
+    # round's (lazy words); both components chained, 1/x and the challenge
+    # words fixed
+    **{f"fold_pair_{name}": (
+        "uint64_t a1 = b ^ 0x5555; const uint64_t c = b + 0x777;",
+        f"{{ const uint64_t d0 = gl::{sub}(a, b), d1 = gl::{sub}(a1, c); "
+        "const uint64_t g0 = gl::reduce_acc_lazy(gl::acc_mac(gl::prod(d0, c), d1, b)); "
+        "const uint64_t g1 = gl::reduce_acc_lazy(gl::acc_mac(gl::prod(d0, b), d1, c)); "
+        "a = gl::reduce_acc_lazy(gl::acc_add(gl::acc_add(gl::prod(c, g0), a, 0), b, 0)); "
+        "a1 = gl::reduce_acc_lazy(gl::acc_add(gl::acc_add(gl::prod(c, g1), a1, 0), c, 0)); }",
+        "a ^= a1;") for name, sub in (("first", "sub"), ("lazy", "sub_lazy"))},
     # one word of the internal layer: a * 2^9 plus the state's sum, reduced
     "shift_add_reduce_lazy": (
         "const gl::W tot = {uint32_t(b), uint32_t(b >> 32), 11u};",
@@ -127,7 +141,7 @@ def main(root: Path) -> None:
     nvcc = tool("nvcc")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for lib in ("ntt", "poseidon2", "quotient_sweep"):
+        for lib in ("ntt", "poseidon2", "quotient_sweep", "fri_fold"):
             r = subprocess.run([nvcc, *FLAGS, "-cubin", "-Xptxas", "-v", "-I", str(csrc), "-o",
                                 str(tmp / f"{lib}.cubin"), str(csrc / f"{lib}.cu")],
                                capture_output=True, text=True)
@@ -137,7 +151,8 @@ def main(root: Path) -> None:
                         or "stack frame" in line or "error" in line:
                     print("  " + line.strip())
         kernels = {}
-        for lib, pattern in (("quotient_sweep", "sweep"), ("ntt", "dit")):
+        for lib, pattern in (("quotient_sweep", "sweep"), ("ntt", "dit"),
+                             ("fri_fold", "fold_oracle")):
             for name, opcodes in sass_functions(tmp / f"{lib}.cubin").items():
                 if pattern in name:
                     kernels[name] = {"total": len(opcodes), **pipe_counts(opcodes, memory=True)}

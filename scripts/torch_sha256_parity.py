@@ -3,6 +3,7 @@
 on the CPU, the port with the plain version of every kernel.
 
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py [--message abc]
+    JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --bench-bytes 8192
 
 Synthesizes bench.py's sha256 circuit (60 copy columns, 8 constant columns,
 degree 7, width-4 x8 specialized lookups) in both packages, sets it up and
@@ -10,7 +11,10 @@ proves it with bench.py's proof config (LDE 8, cap 16, 50 queries, no PoW,
 final degree 16), then prints one JSON line: each side's seconds, whether
 the checkpoint streams and the proof JSON texts are equal, and whether each
 package's verifier accepts the other's proof. sha256(b"abc") pads to 2^14
-rows. Too slow for the tier-1 tests, so it is run by hand.
+rows. `--bench-bytes N` takes bench.py's message of N bytes (byte i is
+i mod 255) in place of `--message`: 8192 bytes, bench.py's headline, pad
+to 2^16 rows. Both sides size the constraint system's capacity as
+bench.py does. Too slow for the tier-1 tests, so it is run by hand.
 """
 
 import argparse
@@ -32,7 +36,9 @@ from boojum_tpu.prover import verify as jverify  # noqa: E402
 from boojum_tpu.prover.proof import Proof as JProof  # noqa: E402
 from boojum_tpu.utils.report import CheckpointLog as JCheckpointLog  # noqa: E402
 from boojum_tpu.utils.report import install_checkpoint_log  # noqa: E402
-from boojum_tpu_torch.circuits import build_sha256, sha256_proof_config  # noqa: E402
+from boojum_tpu_torch.circuits import (  # noqa: E402
+    bench_message, build_sha256, sha256_capacity, sha256_proof_config,
+)
 from boojum_tpu_torch.prover import generate_setup, prove, verify  # noqa: E402
 from boojum_tpu_torch.prover.proof import Proof  # noqa: E402
 from boojum_tpu_torch.utils.report import CheckpointLog  # noqa: E402
@@ -41,8 +47,14 @@ from boojum_tpu_torch.utils.report import CheckpointLog  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--message", default="abc", help="the message, as text")
-    message = ap.parse_args().message.encode()
-    out = {"message_bytes": len(message)}
+    ap.add_argument("--bench-bytes", type=int, default=None,
+                    help="bench.py's message of this many bytes, in place of --message")
+    args = ap.parse_args()
+    if args.bench_bytes is None:
+        message = args.message.encode()
+    else:
+        message = bench_message(args.bench_bytes)
+    out = {"message_bytes": len(message), "bench_message": args.bench_bytes is not None}
 
     t = time.perf_counter()
     cs, _digest = build_sha256(message=message)
@@ -53,9 +65,10 @@ def main() -> int:
     proof = prove(asm, setup, cfg, device="cpu", log=log)
     out["rows"] = asm.trace_len
     out["port_cpu_s"] = time.perf_counter() - t
+    print(json.dumps({"port_done": out}), flush=True)
 
     t = time.perf_counter()
-    jcs = ConstraintSystem(CSGeometry(60, 0, 8, 7), 1 << 17,
+    jcs = ConstraintSystem(CSGeometry(60, 0, 8, 7), sha256_capacity(len(message)),
                            lookup_params=LookupParameters(width=4, num_repetitions=8))
     sha256(jcs, allocate_u8_input(jcs, message))
     jasm = jcs.into_assembly()

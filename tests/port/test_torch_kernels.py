@@ -113,6 +113,47 @@ def test_sweep_and_fold_kernels_match_plain(dev):
         _same(g, w)
 
 
+def _extreme(rng, n, device):
+    """Random canonical words, about half of them 0, 1, p - 1 or p - 2^32."""
+    w = rng.integers(0, gf.P, size=n, dtype=np.uint64)
+    pick = rng.random(n) < 0.5
+    w[pick] = rng.choice(np.array([0, 1, gf.P - 1, gf.P - 2**32], dtype=np.uint64),
+                         size=int(pick.sum()))
+    return gf.from_numpy(w, device)
+
+
+@pytest.mark.parametrize("extra", [0, 1, 4, 10, 16])
+@pytest.mark.parametrize("k", range(1, 2 * fri.MAX_FOLD_K + 1))
+def test_fold_oracle_kernel_matches_plain(dev, k, extra):
+    """Kernel B7: k rounds of one oracle from N = 2^(k + extra) points (at
+    most 2^16) against fold_oracle_plain, with extreme words in values,
+    table and challenges, the challenge 0, and inputs at an odd word offset.
+    A k above MAX_FOLD_K takes two launches, the second reading the first
+    table at a stride: k up to twice MAX_FOLD_K runs every version the
+    kernel is built in."""
+    from boojum_tpu_torch import kernels as K
+
+    N = 1 << min(16, k + extra)
+    rng = np.random.default_rng(10 * k + extra)
+    c0, c1 = _extreme(rng, N, dev), _extreme(rng, N, dev)
+    inv_x = _extreme(rng, N // 2, dev)
+    chs = [tuple(int(v) for v in gf.to_numpy(_extreme(rng, 2, dev))), (0, 0),
+           (gf.P - 1, gf.P - 2**32)]
+    for ch in chs:
+        subs = fri.sub_challenges(ch, k)
+        before = K.LAUNCHES["fri_fold"]
+        got = fri.fold_oracle(c0, c1, subs, inv_x)
+        assert K.LAUNCHES["fri_fold"] - before == -(-k // fri.MAX_FOLD_K)
+        for g, w in zip(got, fri.fold_oracle_plain(c0, c1, subs, inv_x)):
+            _same(g, w)
+    # views one word into a buffer: not 16-byte aligned
+    odd = [_extreme(rng, m + 1, dev)[1:] for m in (N, N, N // 2)]
+    assert all(t.data_ptr() % 16 == 8 for t in odd)
+    for g, w in zip(fri.fold_oracle(*odd[:2], subs, odd[2]),
+                    fri.fold_oracle_plain(*odd[:2], subs, odd[2])):
+        _same(g, w)
+
+
 @pytest.mark.parametrize("circuit", ["xor4", "sha256"])
 def test_lookup_sweep_kernel_matches_plain(dev, circuit):
     """The sweep with its lookup terms, at the xor4 (width 3, 2 sub-arguments)
