@@ -23,6 +23,17 @@
 Both grow step by step to fill 2^log_n rows; at log_n None they are the
 JAX tests' own sizes, proved there with `small_proof_config()`, and the
 card proves them at 2^20 with `sha256_proof_config()`.
+- keccak256 and blake2s (`build_keccak256`, `build_blake2s`), the circuits
+  of the JAX package's tests/test_keccak.py and tests/test_blake2s.py, at
+  the sha256 geometry and lookups: bytes as 8-bit xor/and table lookups,
+  rotations through byte-split tables, blake2s's additions on the byte
+  tri-add gate. Their tables set the least trace: 2^18 rows for keccak256
+  (xor8 and and8, 2^16 rows each), 2^17 for blake2s (xor8); log_n grows
+  the message to fill 2^log_n rows.
+- the gate zoo (`build_gate_zoo`): every gate of the JAX package's
+  cs/gates/simple.py and cs/gates/u32.py, most through the Boolean, Num
+  and UInt gadgets, in a circuit without lookups (ranges by booleans), so
+  it fits 2^8 rows for CPU proofs.
 
 The fma chain and the xor4 lookup circuit also synthesize over BabyBear
 (`field="babybear"`), as the JAX package's tests/test_bb_full_prover.py
@@ -31,13 +42,19 @@ proves them; sha256 cannot (its u32 words need a field above 2^32).
 
 from __future__ import annotations
 
+import dataclasses
+from types import SimpleNamespace
+
 import numpy as np
 
+from .cs import gates
 from .cs.gates import FmaGate, PublicInputGate, ZeroCheckWitnessGate
 from .cs.implementations import ConstraintSystem
 from .cs.lookup_table import LookupTable, range_check_table
 from .cs.types import CSGeometry, LookupParameters
-from .gadgets import allocate_u8_input, sha256
+from .field import gl
+from .gadgets import Boolean, Num, UInt8, UInt16, UInt32, allocate_u8_input, blake2s
+from .gadgets import keccak256, sha256
 from .prover.config import ProofConfig
 
 FMA_GEOMETRY = CSGeometry(
@@ -204,3 +221,159 @@ def small_proof_config() -> ProofConfig:
     general-lookup tests."""
     return ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=4, num_queries=8,
                        pow_bits=0, fri_final_degree=4)
+
+
+KECCAK_ROWS_PER_BLOCK = 3101  # lookup rows a 136-byte block takes, at least
+BLAKE2S_ROWS_PER_BLOCK = 294  # lookup rows a 64-byte block takes, at least
+
+
+def keccak256_message_len(log_n: int) -> int:
+    """Bytes of bench_message whose keccak256 fills 2^log_n rows: whole
+    blocks of 136 bytes (the last takes its one padding byte), each 3101
+    lookup rows or fewer, 16 rows to spare."""
+    return 136 * (((1 << log_n) - 16) // KECCAK_ROWS_PER_BLOCK) - 1
+
+
+def blake2s_message_len(log_n: int) -> int:
+    """Bytes of bench_message whose blake2s fills 2^log_n rows: whole
+    64-byte blocks, each 294 lookup rows or fewer, 16 rows to spare."""
+    return 64 * (((1 << log_n) - 16) // BLAKE2S_ROWS_PER_BLOCK)
+
+
+def _hash_circuit(hash_fn, message: bytes, block: int, rows_per_block: int):
+    """The hash circuit of `message` at the sha256 geometry and lookups, its
+    capacity the rows its blocks can take (2^18 at least, as the JAX tests
+    give)."""
+    rows = (len(message) // block + 1) * rows_per_block + 16
+    cs = ConstraintSystem(SHA256_GEOMETRY, max(1 << 18, 1 << (rows - 1).bit_length()),
+                          lookup_params=SHA256_LOOKUP)
+    return cs, hash_fn(cs, allocate_u8_input(cs, message))
+
+
+def build_keccak256(log_n: int | None = None, message: bytes | None = None):
+    """keccak256 of `message`; else, with log_n, of the bench_message that
+    fills 2^log_n rows (log_n >= 18); else of the JAX test's message.
+    Returns (cs, the 32 digest byte variables)."""
+    if message is None:
+        message = (b"hello TPU keccak" if log_n is None
+                   else bench_message(keccak256_message_len(log_n)))
+    return _hash_circuit(keccak256, message, 136, KECCAK_ROWS_PER_BLOCK)
+
+
+def build_blake2s(log_n: int | None = None, message: bytes | None = None):
+    """blake2s of `message`; else, with log_n, of the bench_message that
+    fills 2^log_n rows (log_n >= 17); else of the JAX test's message.
+    Returns (cs, the 32 digest byte variables)."""
+    if message is None:
+        message = (b"hello TPU blake2s" if log_n is None
+                   else bench_message(blake2s_message_len(log_n)))
+    return _hash_circuit(blake2s, message, 64, BLAKE2S_ROWS_PER_BLOCK)
+
+
+GATE_ZOO_GEOMETRY = CSGeometry(
+    num_columns_under_copy_permutation=24,
+    num_witness_columns=0,
+    num_constant_columns=10,
+    max_allowed_constraint_degree=8,
+)
+
+
+ZOO_GATES = ("BoundedGateWrapper", "ByteTriAddGate", "ConditionalSwapGate", "DotProductGate",
+             "ExplicitConstantsAllocatorGate", "FmaGate", "MatrixMultiplicationGate",
+             "ParallelSelectionGate", "PublicInputGate", "QuadraticCombinationGate",
+             "ReductionByPowersGate", "SimpleNonlinearityGate", "U32TriAddCarryAsChunkGate")
+
+
+def port_zoo_namespace():
+    """The classes `gate_zoo` takes, from this package."""
+    return SimpleNamespace(ConstraintSystem=ConstraintSystem, CSGeometry=CSGeometry,
+                           Boolean=Boolean, Num=Num, UInt8=UInt8, UInt16=UInt16,
+                           UInt32=UInt32, **{name: getattr(gates, name) for name in ZOO_GATES})
+
+
+ZOO_FIRST_ROUND_ROWS, ZOO_ROWS_PER_ROUND = 120, 118  # the most rows a round takes
+
+
+def gate_zoo(m, log_n: int | None = None, seed: int = 5):
+    """Every gate of simple.py and u32.py placed at least once, over the
+    classes of namespace `m` (ConstraintSystem, CSGeometry, ZOO_GATES and
+    the Boolean, Num and UInt gadgets, under their names;
+    `port_zoo_namespace` gives this package's), on values drawn by numpy
+    seed `seed`: one round (2^7 rows), or with log_n (8 or more) as many
+    as fill 2^log_n rows. The rounds' folded results, folded, are the public
+    input. Without lookups the UInt gadgets range-check by booleans.
+    Returns (cs, public input variable)."""
+    rounds = 1 + (0 if log_n is None else max(
+        0, ((1 << log_n) - 16 - ZOO_FIRST_ROUND_ROWS) // ZOO_ROWS_PER_ROUND))
+    cs = m.ConstraintSystem(m.CSGeometry(*dataclasses.astuple(GATE_ZOO_GEOMETRY)),
+                            1 << (log_n or 7))
+    rng = np.random.default_rng(seed)
+    # one matrix for every round: the gate's name stands for its matrix
+    matrix = rng.integers(0, 1 << 63, (3, 3), dtype=np.uint64)
+    mds = m.MatrixMultiplicationGate("zoo3", [[int(v) for v in row] for row in matrix])
+    folded = [_zoo_round(m, cs, rng, mds) for _ in range(rounds)]
+    if rounds > 1:
+        folded = [m.Num.linear_combination(cs, folded, list(range(1, rounds + 1)))]
+    m.PublicInputGate.place(cs, folded[0].var)
+    return cs, folded[0].var
+
+
+def _zoo_round(m, cs, rng, mds):
+    rand = lambda bits: int(rng.integers(0, 1 << bits, dtype=np.uint64))  # noqa: E731
+    # Boolean: and, or, xor, not, select (boolean, fma, selection gates)
+    a, b = m.Boolean.allocate(cs, True), m.Boolean.allocate(cs, False)
+    flags = [a.and_(cs, b), a.or_(cs, b), a.xor(cs, b), b.negate(cs)]
+    flag = m.Boolean.select(cs, a, m.Boolean.multi_or(cs, flags), b)
+    # Num: arithmetic, equality (zero check), linear combinations
+    # (reduction), bits (boolean, reduction), select, mask
+    x, y = m.Num.allocate(cs, rand(63)), m.Num.allocate(cs, rand(63))
+    s = x.add(cs, y).mul(cs, x.sub(cs, y))
+    eq = x.equals(cs, y).or_(cs, s.is_zero(cs))
+    lc = m.Num.linear_combination(cs, [x, y, s, m.Num.allocate(cs, 5), x],
+                                  [1, 2, 3, 4, rand(60)])
+    bits = m.Num.allocate(cs, rand(10)).spread_into_bits(cs, 10)
+    acc = m.Num.select(cs, flag, lc, s.mask(cs, eq)).add_constant(cs, len(bits))
+    zero, one = cs.zero_var(), cs.one_var()
+    acc = acc.var
+    acc = m.ReductionByPowersGate.reduce(cs, [acc, x.var, y.var, bits[3].var], rand(40))
+    outs = m.ParallelSelectionGate.select(cs, a.var, [acc, x.var, y.var, s.var],
+                                          [y.var, acc, s.var, x.var])
+    u, v = m.ConditionalSwapGate.swap(cs, b.var, outs[0], outs[1])
+    acc = m.DotProductGate.dot(cs, [(u, v), (outs[2], outs[3]), (x.var, y.var), (acc, one)])
+    neg_v = m.Num(zero).sub(cs, m.Num(v)).var
+    m.QuadraticCombinationGate.enforce(cs, [(u, v), (u, neg_v), (acc, zero), (one, zero)])
+    bounded = m.BoundedGateWrapper(m.FmaGate.instance(), max_rows=1)
+    d = cs.alloc_variable_with_value(
+        (cs.get_value(acc) * cs.get_value(u) + cs.get_value(v)) % gl.P)
+    bounded.place(cs, [acc, u, v, d], (1, 1))
+    acc = m.SimpleNonlinearityGate.apply(cs, d, rand(20))
+    state = mds.apply(cs, [acc, u, v])
+    explicit = m.ExplicitConstantsAllocatorGate.allocate(cs, (5, 1 << 32))
+    # UInt: add (u32 add, uint8 and uint16 add), sub, fma, bytes
+    w1, w2 = m.UInt32.allocate_checked(cs, rand(32)), m.UInt32.allocate_checked(cs, rand(32))
+    total, carry = w1.add(cs, w2)
+    diff, borrow = w1.sub(cs, w2)
+    low, high = w1.fma(cs, w2, total)
+    small = [m.UInt8.allocate_checked(cs, rand(8)) for _ in range(4)]
+    b8, _c8 = small[0].add(cs, small[1])
+    h16, _c16 = m.UInt16.allocate_checked(cs, rand(16)).add(
+        cs, m.UInt16.allocate_checked(cs, rand(16)))
+    word = m.UInt32.from_be_bytes(cs, small)
+    le = word.to_le_bytes(cs)
+    tri_low, tri_high = m.U32TriAddCarryAsChunkGate.add(cs, low.var, high.var, diff.var)
+    out4, tri_carry = m.ByteTriAddGate.add(cs, [e.var for e in le],
+                                           [e.var for e in small], [b8.var, one, zero, zero])
+    parts = (*state, explicit[5], explicit[1 << 32], carry.var, borrow.var, h16.var,
+             tri_low, tri_high, *out4, tri_carry)
+    return m.Num.linear_combination(cs, [m.Num(v) for v in parts],
+                                    list(range(1, len(parts) + 1)))
+
+
+def build_gate_zoo(log_n: int | None = None, seed: int = 5):
+    """The gate zoo over this package's classes (`gate_zoo`)."""
+    return gate_zoo(port_zoo_namespace(), log_n, seed)
+
+
+def gate_zoo_proof_config() -> ProofConfig:
+    return ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=4, num_queries=8,
+                       pow_bits=0, fri_final_degree=8)

@@ -6,7 +6,10 @@ witness columns, sigma and constant columns, selector paths, non-residues
 and, with lookups, the multiplicities and table stack, plus in specialized
 mode the lookup placement and values and the table-id column). Feeding
 those here gives the port the same circuit, so its prover can be held
-against the JAX prover apart from synthesis. Nothing here imports the JAX
+against the JAX prover apart from synthesis. A gate is named, or, where
+a name does not say all of it (a matrix, a width, a wrapped gate and its
+budget, a set of constants), given as the JAX assembly's gate object, from
+whose attributes `port_gate` rebuilds it. Nothing here imports the JAX
 package.
 """
 
@@ -15,10 +18,65 @@ from __future__ import annotations
 import numpy as np
 
 from . import resolve_device
-from .cs.gates import GATES_BY_NAME, LookupMarkerGate
+from .cs.gates import (
+    GATES_BY_NAME,
+    BoundedGateWrapper,
+    ExplicitConstantsAllocatorGate,
+    LookupMarkerGate,
+    MatrixMultiplicationGate,
+    UIntXAddGate,
+)
 from .cs.implementations import CSAssembly
 from .cs.types import CSGeometry, LookupParameters
+from .field import gl
 from .prover.setup import SetupData, commit_setup
+
+
+def port_gate(gate, lookup_width: int = 0):
+    """The port's gate for a gate name or a gate object (the JAX gate, read
+    by its class name and parameter attributes); lookup_width: the lookup
+    marker's width. A parametrised gate is rebuilt from its parameters and
+    must come out with the same name and parameters, or this raises."""
+    name = gate if isinstance(gate, str) else gate.name
+    if name == LookupMarkerGate.name:
+        return LookupMarkerGate.instance(
+            lookup_width if isinstance(gate, str) else gate.principal_width)
+    kind = None if isinstance(gate, str) else type(gate).__name__
+    if kind in PARAMETRISED:
+        ported, params = PARAMETRISED[kind](gate, lookup_width)
+        for attr in params:
+            if getattr(ported, attr) != getattr(gate, attr):
+                raise ValueError(f"gate {name}: its {attr} does not carry over")
+        if ported.name != name:
+            raise ValueError(f"gate {name} rebuilt as {ported.name}")
+        return ported
+    if name not in GATES_BY_NAME:
+        raise NotImplementedError(f"gate not ported: {name}")
+    return GATES_BY_NAME[name].instance()
+
+
+def _matrix_gate(gate, _lookup_width):
+    if not gate.name.startswith("matmul_"):
+        raise ValueError(f"matrix gate {gate.name} lacks the matmul_ prefix")
+    return MatrixMultiplicationGate(gate.name[len("matmul_"):], gate.matrix), ("matrix",)
+
+
+def _constants_gate(gate, _lookup_width):
+    fixed = [0, 1, gl.P - 1]
+    if list(gate.constants[:3]) != fixed:
+        raise ValueError(f"gate {gate.name}: its constants do not start with {fixed}")
+    return ExplicitConstantsAllocatorGate(gate.constants[3:]), ("constants",)
+
+
+# the JAX class name of each parametrised gate: (its rebuild from the gate
+# object, the attributes that must carry over unchanged)
+PARAMETRISED = {
+    "BoundedGateWrapper": lambda g, lw: (
+        BoundedGateWrapper(port_gate(g.inner, lw), g.max_rows), ("max_rows",)),
+    "MatrixMultiplicationGate": _matrix_gate,
+    "UIntXAddGate": lambda g, _lw: (UIntXAddGate(g.width_bits), ("width_bits",)),
+    "ExplicitConstantsAllocatorGate": _constants_gate,
+}
 
 
 def assembly_from_arrays(*, geometry, trace_len: int, gate_names, row_gate,
@@ -28,7 +86,8 @@ def assembly_from_arrays(*, geometry, trace_len: int, gate_names, row_gate,
                          multiplicities=None, table_id_col=None,
                          table_stack=None) -> CSAssembly:
     """geometry: the four CSGeometry ints (copy, witness, constant columns,
-    max degree); gate_constants: {row: tuple of ints}; public_inputs:
+    max degree); gate_names: each gate's name or object (`port_gate`);
+    gate_constants: {row: tuple of ints}; public_inputs:
     [(column, row, value)]; wit_placement and wit_values (W, n) with witness
     columns. With lookups: lookup_params the four LookupParameters fields
     (width, repetitions, shared table id, specialized columns);
@@ -36,9 +95,6 @@ def assembly_from_arrays(*, geometry, trace_len: int, gate_names, row_gate,
     the table ids 1..T; in specialized mode also lookup_placement and
     lookup_values (R·width, n) and table_id_col (n,)."""
     geometry = CSGeometry(*(int(g) for g in geometry))
-    unknown = [g for g in gate_names if g not in GATES_BY_NAME]
-    if unknown:
-        raise NotImplementedError(f"gates not ported: {unknown}")
     arrays = {}
     width = 0
     if lookup_params is not None:
@@ -64,15 +120,10 @@ def assembly_from_arrays(*, geometry, trace_len: int, gate_names, row_gate,
             wit_cols_values=np.asarray(wit_values, dtype=np.uint64).copy(),
         )
 
-    def gate(name):
-        if name == LookupMarkerGate.name:
-            return LookupMarkerGate.instance(width)
-        return GATES_BY_NAME[name].instance()
-
     return CSAssembly(
         geometry=geometry,
         trace_len=int(trace_len),
-        gates=[gate(g) for g in gate_names],
+        gates=[port_gate(g, width) for g in gate_names],
         row_gate=np.asarray(row_gate, dtype=np.int32).copy(),
         gate_constants={
             int(r): tuple(int(c) for c in cs) for r, cs in gate_constants.items()

@@ -1,7 +1,11 @@
-"""The gates of the port's circuits, with the constraints of the JAX
-package's cs/gates/simple.py (era-boojum's fma_gate_without_constant.rs,
-constant_allocator.rs, nop_gate.rs, public_input.rs, reduction_gate.rs,
-zero_check.rs with its witness-column inverse, lookup_marker.rs).
+"""The gates of the JAX package's cs/gates/simple.py, with its constraints
+(era-boojum's fma_gate_without_constant.rs, constant_allocator.rs,
+boolean_allocator.rs, nop_gate.rs, public_input.rs, reduction_gate.rs,
+reduction_by_powers_gate.rs, selection_gate.rs, parallel_selection.rs,
+conditional_swap.rs, dot_product_gate.rs, quadratic_combination.rs,
+zero_check.rs with and without its witness-column inverse, bounded_wrapper.rs,
+lookup_marker.rs, simple_non_linearity_with_constant.rs,
+matrix_multiplication_gate.rs, constants_allocator_as_explicit_constraint.rs).
 
 Synthesis resolves every value eagerly as a host int: a constructor computes
 its outputs and places the instance, reducing modulo the circuit's field
@@ -10,6 +14,7 @@ its outputs and places the instance, reducing modulo the circuit's field
 
 from __future__ import annotations
 
+from ...field import gl
 from .base import Gate
 
 
@@ -193,8 +198,348 @@ class LookupMarkerGate(Gate):
         return gate
 
 
+class BooleanConstraintGate(Gate):
+    """x^2 = x."""
+
+    name = "boolean"
+    principal_width = 1
+    num_terms = 1
+    max_degree = 2
+
+    def evaluate(self, ops, row, dst):
+        x = row.v(0)
+        dst.push(ops.sub(ops.mul(x, x), x))
+
+    @staticmethod
+    def enforce(cs, v):
+        cs.place_gate(BooleanConstraintGate.instance(), (v,), ())
+        return v
+
+    @staticmethod
+    def allocate(cs, witness_fn=None, ins=()):
+        v = cs.alloc_variable_without_value()
+        if witness_fn is not None:
+            cs.set_values_with_dependencies(list(ins), [v], witness_fn)
+        return BooleanConstraintGate.enforce(cs, v)
+
+
+class ReductionByPowersGate(Gate):
+    """Σ_i c^i·x_i = out over four terms, c the row's one constant."""
+
+    name = "reduction_by_powers4"
+    principal_width = 5
+    num_constants = 1
+    num_terms = 1
+    max_degree = 1
+
+    def evaluate(self, ops, row, dst):
+        c = row.c(0)
+        acc = row.v(0)
+        cp = c
+        for i in range(1, 4):
+            acc = ops.add(acc, ops.mul(row.v(i), cp))
+            cp = ops.mul(cp, c)
+        dst.push(ops.sub(acc, row.v(4)))
+
+    @staticmethod
+    def reduce(cs, vars4, base):
+        b = base % cs.p
+        val = cs.values
+        value = sum(val[v >> 1] * pow(b, i, cs.p) for i, v in enumerate(vars4)) % cs.p
+        out = cs.alloc_variable_with_value(value)
+        cs.place_gate(ReductionByPowersGate.instance(), (*vars4, out), (b,))
+        return out
+
+
+class SelectionGate(Gate):
+    """out = sel ? a : b, as sel·(a - b) + b - out."""
+
+    name = "selection"
+    principal_width = 4
+    num_terms = 1
+    max_degree = 2
+
+    def evaluate(self, ops, row, dst):
+        a, b, sel, out = row.v(0), row.v(1), row.v(2), row.v(3)
+        t = ops.mul(sel, ops.sub(a, b))
+        dst.push(ops.sub(ops.add(t, b), out))
+
+    @staticmethod
+    def select(cs, sel, a, b):
+        out = cs.alloc_variable_without_value()
+        cs.set_values_with_dependencies([a, b, sel], [out],
+                                        lambda v: [v[0] if v[2] == 1 else v[1]])
+        cs.place_gate(SelectionGate.instance(), (a, b, sel, out), ())
+        return out
+
+
+class ParallelSelectionGate(Gate):
+    """Four selections under one selector: sel, then (a, b, out) four times."""
+
+    name = "parallel_selection4"
+    principal_width = 13
+    num_terms = 4
+    max_degree = 2
+
+    def evaluate(self, ops, row, dst):
+        sel = row.v(0)
+        for i in range(4):
+            a, b, out = row.v(1 + 3 * i), row.v(2 + 3 * i), row.v(3 + 3 * i)
+            t = ops.mul(sel, ops.sub(a, b))
+            dst.push(ops.sub(ops.add(t, b), out))
+
+    @staticmethod
+    def select(cs, sel, a_list, b_list):
+        if len(a_list) != 4 or len(b_list) != 4:
+            raise ValueError("parallel selection takes four pairs")
+        outs = cs.alloc_multiple_variables_without_values(4)
+        cs.set_values_with_dependencies(
+            [sel, *a_list, *b_list], outs,
+            lambda v: [a if v[0] == 1 else b for a, b in zip(v[1:5], v[5:9])])
+        flat = [sel]
+        for a, b, o in zip(a_list, b_list, outs):
+            flat += [a, b, o]
+        cs.place_gate(ParallelSelectionGate.instance(), flat, ())
+        return outs
+
+
+class ConditionalSwapGate(Gate):
+    """(x, y) = sel ? (b, a) : (a, b)."""
+
+    name = "conditional_swap"
+    principal_width = 5
+    num_terms = 2
+    max_degree = 2
+
+    def evaluate(self, ops, row, dst):
+        sel, a, b, x, y = (row.v(i) for i in range(5))
+        d = ops.mul(sel, ops.sub(b, a))
+        dst.push(ops.sub(ops.add(a, d), x))
+        dst.push(ops.add(ops.sub(b, d), ops.neg(y)))
+
+    @staticmethod
+    def swap(cs, sel, a, b):
+        x, y = cs.alloc_multiple_variables_without_values(2)
+        cs.set_values_with_dependencies(
+            [sel, a, b], [x, y], lambda v: [v[2], v[1]] if v[0] == 1 else [v[1], v[2]])
+        cs.place_gate(ConditionalSwapGate.instance(), (sel, a, b, x, y), ())
+        return x, y
+
+
+class DotProductGate(Gate):
+    """Σ of four products = out."""
+
+    name = "dot_product4"
+    principal_width = 9
+    num_terms = 1
+    max_degree = 2
+
+    def evaluate(self, ops, row, dst):
+        acc = ops.zero()
+        for i in range(4):
+            acc = ops.add(acc, ops.mul(row.v(2 * i), row.v(2 * i + 1)))
+        dst.push(ops.sub(acc, row.v(8)))
+
+    @staticmethod
+    def dot(cs, pairs):
+        if len(pairs) != 4:
+            raise ValueError("a dot product takes four pairs")
+        flat = [v for pair in pairs for v in pair]
+        val = cs.values
+        value = sum(val[a >> 1] * val[b >> 1] for a, b in pairs) % cs.p
+        out = cs.alloc_variable_with_value(value)
+        cs.place_gate(DotProductGate.instance(), (*flat, out), ())
+        return out
+
+
+class QuadraticCombinationGate(Gate):
+    """Σ of four products = 0."""
+
+    name = "quadratic_combination4"
+    principal_width = 8
+    num_terms = 1
+    max_degree = 2
+
+    def evaluate(self, ops, row, dst):
+        acc = ops.zero()
+        for i in range(4):
+            acc = ops.add(acc, ops.mul(row.v(2 * i), row.v(2 * i + 1)))
+        dst.push(acc)
+
+    @staticmethod
+    def enforce(cs, pairs):
+        if len(pairs) != 4:
+            raise ValueError("a quadratic combination takes four pairs")
+        cs.place_gate(QuadraticCombinationGate.instance(),
+                      [v for pair in pairs for v in pair], ())
+
+
+class ZeroCheckGate(Gate):
+    """out = (x == 0): x·out = 0 and 1 - out - x·aux = 0, the inverse aux in
+    a copy column."""
+
+    name = "zero_check"
+    principal_width = 3
+    num_terms = 2
+    max_degree = 2
+
+    def evaluate(self, ops, row, dst):
+        x, out, aux = row.v(0), row.v(1), row.v(2)
+        dst.push(ops.mul(x, out))
+        dst.push(ops.sub(ops.sub(ops.one(), out), ops.mul(x, aux)))
+
+    def padding_instance(self, cs, constants=()):
+        return [cs.zero_var(), cs.one_var(), cs.zero_var()]
+
+    @staticmethod
+    def is_zero(cs, x):
+        out, aux = cs.alloc_multiple_variables_without_values(2)
+        cs.set_values_with_dependencies(
+            [x], [out, aux], lambda v: [1, 0] if v[0] == 0 else [0, cs.inv(v[0])])
+        cs.place_gate(ZeroCheckGate.instance(), (x, out, aux), ())
+        return out
+
+
+class BoundedGateWrapper(Gate):
+    """An inner gate under a budget of rows: placement through the wrapper
+    refuses to open a row past `max_rows`. It is a gate of its own name
+    (bounded_<inner>), so its rows and selector are its own; its
+    constraints are the inner gate's."""
+
+    def __init__(self, inner: Gate, max_rows: int):
+        self.inner = inner
+        self.max_rows = max_rows
+        self.name = f"bounded_{inner.name}"
+        for attr in ("principal_width", "witness_width", "num_constants", "num_terms",
+                     "max_degree"):
+            setattr(self, attr, getattr(inner, attr))
+        self._rows_used: set = set()
+
+    def evaluate(self, ops, row, dst):
+        return self.inner.evaluate(ops, row, dst)
+
+    def padding_instance(self, cs, constants=()):
+        return self.inner.padding_instance(cs, constants)
+
+    def place(self, cs, var_places, constants=(), wit_places=()):
+        """Place one instance; raises before touching the system when the
+        instance would open a row past the budget."""
+        tool = cs._tooling.get((self.name, tuple(constants)))
+        opens_new_row = tool is None or tool[1] >= self.num_repetitions(cs.geometry)
+        if opens_new_row and len(self._rows_used) >= self.max_rows:
+            raise RuntimeError(
+                f"bounded gate {self.inner.name}: row budget {self.max_rows} exceeded")
+        off, row = cs.place_gate(self, var_places, constants, wit_places)
+        self._rows_used.add(row)
+        return off, row
+
+
+class SimpleNonlinearityGate(Gate):
+    """y = x^7 + c."""
+
+    name = "nonlinearity7"
+    principal_width = 2
+    num_constants = 1
+    num_terms = 1
+    max_degree = 7
+
+    def evaluate(self, ops, row, dst):
+        x, y = row.v(0), row.v(1)
+        x2 = ops.mul(x, x)
+        x3 = ops.mul(x2, x)
+        x4 = ops.mul(x2, x2)
+        x7 = ops.mul(x4, x3)
+        dst.push(ops.sub(ops.add(x7, row.c(0)), y))
+
+    def padding_instance(self, cs, constants=()):
+        y = cs.alloc_variable_with_value(constants[0] if constants else 0)
+        return [cs.zero_var(), y]
+
+    @staticmethod
+    def apply(cs, x, c: int):
+        c = c % cs.p
+        y = cs.alloc_variable_with_value(pow(cs.get_value(x), 7, cs.p) + c)
+        cs.place_gate(SimpleNonlinearityGate.instance(), (x, y), (c,))
+        return y
+
+
+class MatrixMultiplicationGate(Gate):
+    """out = M·in for an N×N matrix that is a parameter of the gate (the
+    Poseidon MDS layers): gates of different matrices are different gates,
+    named matmul_<name>."""
+
+    num_constants = 0
+    max_degree = 1
+
+    def __init__(self, name: str, matrix):
+        self.name = f"matmul_{name}"
+        self.matrix = [[int(v) % gl.P for v in r] for r in matrix]
+        self.n = len(self.matrix)
+        self.principal_width = 2 * self.n
+        self.num_terms = self.n
+
+    def evaluate(self, ops, row, dst):
+        n = self.n
+        for i in range(n):
+            acc = ops.zero()
+            for j in range(n):
+                m = self.matrix[i][j]
+                if m:
+                    acc = ops.add(acc, ops.mul(ops.constant(m), row.v(j)))
+            dst.push(ops.sub(acc, row.v(n + i)))
+
+    def apply(self, cs, ins):
+        if len(ins) != self.n:
+            raise ValueError(f"{self.name} takes {self.n} inputs")
+        outs = cs.alloc_multiple_variables_without_values(self.n)
+        mat = self.matrix
+        cs.set_values_with_dependencies(
+            list(ins), outs, lambda v: [sum(m * x for m, x in zip(r, v)) for r in mat])
+        cs.place_gate(self, [*ins, *outs], ())
+        return outs
+
+
+class ExplicitConstantsAllocatorGate(Gate):
+    """Constants as constraints with the values baked into the gate, using
+    no constant column: 0, 1 and -1 always, then a set of the caller's; a
+    gate per set, named explicit_constants[<the set>]."""
+
+    witness_width = 0
+    num_constants = 0
+    max_degree = 1
+
+    def __init__(self, constants_set=()):
+        self.constants = [0, 1, gl.P - 1] + [int(c) % gl.P for c in constants_set]
+        self.principal_width = self.num_terms = len(self.constants)
+        self.name = ("explicit_constants["
+                     + ",".join(str(c) for c in self.constants[3:]) + "]")
+
+    def evaluate(self, ops, row, dst):
+        for i, c in enumerate(self.constants):
+            dst.push(ops.sub(row.v(i), ops.constant(c)))
+
+    def padding_instance(self, cs, constants=()):
+        return [cs.alloc_variable_with_value(c) for c in self.constants]
+
+    @staticmethod
+    def allocate(cs, constants_set=()):
+        """Place one instance; returns {value: variable} for 0, 1, p - 1 and
+        every value of constants_set."""
+        gate = ExplicitConstantsAllocatorGate(constants_set)
+        variables = [cs.alloc_variable_with_value(c) for c in gate.constants]
+        cs.place_gate(gate, variables, ())
+        return dict(zip(gate.constants, variables))
+
+
+# the gates a name alone identifies; the parametrised gates
+# (MatrixMultiplicationGate, ExplicitConstantsAllocatorGate,
+# BoundedGateWrapper, u32.UIntXAddGate) are rebuilt from their parameters
+# (compat.port_gate)
 GATES_BY_NAME = {
     g.name: g
-    for g in (FmaGate, ConstantsAllocatorGate, NopGate, PublicInputGate, ReductionGate,
-              ZeroCheckWitnessGate, LookupMarkerGate)
+    for g in (FmaGate, ConstantsAllocatorGate, BooleanConstraintGate, NopGate,
+              PublicInputGate, ReductionGate, ReductionByPowersGate, SelectionGate,
+              ParallelSelectionGate, ConditionalSwapGate, DotProductGate,
+              QuadraticCombinationGate, ZeroCheckGate, ZeroCheckWitnessGate,
+              LookupMarkerGate, SimpleNonlinearityGate)
 }

@@ -45,6 +45,25 @@ class LookupTable:
         return self._rows[self._index[tuple(int(k) for k in keys)]][self.num_keys :]
 
 
+def binop_table(name: str, op) -> LookupTable:
+    """(a, b) -> op(a, b) over bytes; 65536 rows."""
+    a = np.arange(256, dtype=np.uint64).repeat(256)
+    b = np.tile(np.arange(256, dtype=np.uint64), 256)
+    return LookupTable(name, 2, 1, np.stack([a, b, op(a, b)], axis=1))
+
+
+def and8_table() -> LookupTable:
+    return binop_table("and8", lambda a, b: a & b)
+
+
+def xor8_table() -> LookupTable:
+    return binop_table("xor8", lambda a, b: a ^ b)
+
+
+def or8_table() -> LookupTable:
+    return binop_table("or8", lambda a, b: a | b)
+
+
 def range_check_table(bits: int, name: str | None = None) -> LookupTable:
     """[0, 2^bits) membership as (x, 0) pairs, so the table stacks with
     width-2 tables."""

@@ -54,19 +54,24 @@
 // (R = 0: no lookup terms), then the gate count and, per gate with quotient
 // terms, in gate order:
 //   path_len, path bits..., reps, num_slots,
-//   num_loads, (slot, block 0=cols 1=constants, base, stride)...,
-//   num_consts, (slot, index into kvals)...,
-//   num_ops, (opcode 0=add 1=sub 2=mul 3=neg 4=double, dst, a, b)...,
+//   num_instructions, (opcode, dst, a, b)...,
 //   num_terms, term slots...
+// with opcodes 0=add 1=sub 2=mul 3=neg 4=double over slots a and b, 5 and 6
+// a load of column a + instance·b of cols or of the constants, 7 the
+// constant kvals[a]. Slots are reused by liveness (quotient_sweep.py
+// schedule_program): a load or a constant comes just before its first use
+// and a result may take a dead operand's slot, so a gate's slots are the
+// most values it holds at once (24 for a 12×12 matrix gate), not its SSA
+// values (480).
 // Scalar table (uint64): beta (2), gamma (2), the non-residues (Ct), then
 // the alpha powers as c0 (T) and c1 (T); with lookups then beta' (2) and the
 // powers gamma'^0..gamma'^width as (c0, c1) pairs; then the kernel's own
 // entries, which no plain version reads: (beta.c0·k_i, beta.c1·k_i) per copy
 // column and 7·alpha^t.c1 (T).
 //
-// A load of instance inst reads column base + inst·stride of its block: a
-// copy cell has stride principal_width, a witness cell base Ct + index and
-// stride witness_width, a constant base const_off + index and stride 0.
+// A load of instance inst reads column base + inst·stride: a copy cell has
+// stride principal_width, a witness cell base Ct + index and stride
+// witness_width, a constant base const_off + index and stride 0.
 //
 // Operands, each a block of rows of stride n: cols (the witness oracle's
 // first rows: the Ct copy columns, the lookup tuples among them, then the
@@ -80,6 +85,8 @@ namespace {
 
 constexpr int kMaxSlots = 32;
 constexpr int kGates = 1, kCopyPermutation = 2, kLookups = 4;
+// instructions past the five ops: loads from cols or constants, a constant
+constexpr int kLoadCols = 5, kLoadConsts = 6, kConst = 7;
 
 using gl::Ext;
 
@@ -212,34 +219,31 @@ sweep(const Operands o, const uint64_t* __restrict__ table_g, const int* __restr
     pc += path_len;
     const int reps = prog[pc++];
     pc++;  // num_slots, checked on the host
-    // the body every instance replays: offsets of its loads, constants,
-    // ops and terms in the program
-    const int loads = pc + 1, num_loads = prog[pc];
-    const int consts = loads + 4 * num_loads + 1, num_consts = prog[consts - 1];
-    const int ops = consts + 2 * num_consts + 1, num_ops = prog[ops - 1];
-    const int terms = ops + 4 * num_ops + 1, num_terms = prog[terms - 1];
+    // the body every instance replays: its instructions, then its terms
+    const int ins = pc + 1, num_ins = prog[pc];
+    const int terms = ins + 4 * num_ins + 1, num_terms = prog[terms - 1];
     pc = terms + num_terms;
     ExtA gacc[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) gacc[k] = ExtA{};
     for (int inst = 0; inst < reps; ++inst, ta += num_terms) {
       if (S > 1 && inst_no++ % S != sub) continue;
-      for (int i = 0; i < num_loads; ++i) {
-        const int* ld = prog + loads + 4 * i;
-        const uint64_t* src = (ld[1] ? o.consts : o.cols) + size_t(ld[2] + inst * ld[3]) * n;
-        const int s = ld[0];
-#pragma unroll
-        for (int k = 0; k < R; ++k) slot[(s * R + k) * T] = src[row[k]];
-      }
-      for (int i = 0; i < num_consts; ++i) {
-        const int s = prog[consts + 2 * i];
-        const uint64_t v = kvals[prog[consts + 2 * i + 1]];
-#pragma unroll
-        for (int k = 0; k < R; ++k) slot[(s * R + k) * T] = v;
-      }
-      for (int i = 0; i < num_ops; ++i) {
-        const int* od = prog + ops + 4 * i;
+      for (int i = 0; i < num_ins; ++i) {
+        const int* od = prog + ins + 4 * i;
         const int op = od[0], dst = od[1], sa = od[2], sb = od[3];
+        if (op >= kLoadCols) {  // a load or a constant, at its first use
+          if (op == kConst) {
+            const uint64_t v = kvals[sa];
+#pragma unroll
+            for (int k = 0; k < R; ++k) slot[(dst * R + k) * T] = v;
+          } else {
+            const uint64_t* src =
+                (op == kLoadConsts ? o.consts : o.cols) + size_t(sa + inst * sb) * n;
+#pragma unroll
+            for (int k = 0; k < R; ++k) slot[(dst * R + k) * T] = src[row[k]];
+          }
+          continue;
+        }
         uint64_t x[R], y[R];
 #pragma unroll
         for (int k = 0; k < R; ++k) {

@@ -1,6 +1,7 @@
-"""The sha256 gadget's lookup tables, as in the JAX package's
-gadgets/tables.py (era-boojum gadgets/tables: trixor4.rs, ch4.rs, maj4.rs,
-chunk4bits.rs). Every table is at most 4 wide, to fit width-4 sub-arguments.
+"""The gadgets' lookup tables, as in the JAX package's gadgets/tables.py
+(era-boojum gadgets/tables: trixor4.rs, ch4.rs, maj4.rs, chunk4bits.rs,
+byte_split.rs; the 8-bit binary tables are in cs/lookup_table.py). Every
+table is at most 4 wide, to fit width-4 sub-arguments.
 """
 
 from __future__ import annotations
@@ -32,6 +33,17 @@ def ch4_table() -> LookupTable:
 def maj4_table() -> LookupTable:
     """sha256 majority (a & b) ^ (a & c) ^ (b & c) on 4-bit chunks."""
     return _tri_table("maj4", lambda a, b, c: (a & b) ^ (a & c) ^ (b & c))
+
+
+def byte_split_table(split_at: int) -> LookupTable:
+    """x in [0, 256) -> (x mod 2^split_at, x >> split_at): the byte
+    rotations of keccak256 and blake2s, one table a split point."""
+    if not 0 < split_at < 8:
+        raise ValueError("split_at must lie in 1..7")
+    x = np.arange(256, dtype=np.uint64)
+    low = x & np.uint64((1 << split_at) - 1)
+    high = x >> np.uint64(split_at)
+    return LookupTable(f"byte_split_at{split_at}", 1, 2, np.stack([x, low, high], axis=1))
 
 
 def split4bit_table(split_at: int) -> LookupTable:

@@ -21,8 +21,9 @@ JAX package's order: every gate term first (gate order, instance, term),
 then the copy-permutation terms, then the lookup sub-arguments and B.
 
 Gates reach the kernel as data: each gate's captured op program
-(cs/gate_capture.py) is encoded into an int32 table that the kernel and the
-plain version below both interpret, so the CPU tests check the encoding.
+(cs/gate_capture.py), its slots renumbered by liveness (`schedule_program`),
+is encoded into an int32 table that the kernel and the plain version below
+both interpret, so the CPU tests check the encoding.
 The scalar table ends with entries only the kernel reads (β·k_i per copy
 column, 7·α^t.c1), which save it products; `kernel_entries` defines them.
 """
@@ -99,17 +100,74 @@ def num_gate_terms(gates, geometry) -> int:
 # the goldilocks.cuh primitive the kernel runs for each gate op
 KERNEL_OP = {"add": "add_lazy", "sub": "sub_lazy", "mul": "mul_lazy", "neg": "sub_lazy",
              "double": "add_lazy"}
+# instructions past the ops: a load from the witness oracle's columns or from
+# the constant columns, (op, dst, column, stride); a constant, (op, dst,
+# index into kvals, 0)
+LOAD_COLS, LOAD_CONSTS, CONST = 5, 6, 7
+
+
+def schedule_program(p):
+    """A captured program as one stream of instructions over slots reused by
+    liveness: each load and constant is placed just before its first use,
+    and a result takes the lowest free slot, which may be an operand's that
+    dies at that op. Returns (instructions as (op, dst, a, b) with `a` a
+    load's (kind, index) or a constant's value, term slots, slots used).
+    The ops and their order are the program's, so the values are too."""
+    defs = {slot: ("load", kind, idx) for slot, kind, idx in p.loads}
+    defs.update({slot: ("const", value) for slot, value in p.consts})
+    stream = []  # (op, dst, operands) over SSA slots
+    placed = set()
+
+    def place(v):
+        if v in defs and v not in placed:
+            placed.add(v)
+            stream.append((defs[v], v, ()))
+
+    for op, dst, a, b in p.ops:
+        place(a)
+        place(b)
+        stream.append((op, dst, (a,) if op in ("neg", "double") else (a, b)))
+    for t in p.terms:
+        place(t)
+    last = {}
+    for i, (_op, dst, args) in enumerate(stream):
+        last[dst] = i
+        for v in args:
+            last[v] = i
+    for t in p.terms:
+        last[t] = len(stream)
+    free, phys, out, num_slots = [], {}, [], 0
+    for i, (op, dst, args) in enumerate(stream):
+        srcs = [phys[v] for v in args]
+        for v in dict.fromkeys(args):
+            if last[v] == i:
+                free.append(phys[v])
+        free.sort()
+        if free:
+            phys[dst] = free.pop(0)
+        else:
+            phys[dst] = num_slots
+            num_slots += 1
+        if last[dst] == i:  # a result nothing reads
+            free.append(phys[dst])
+        if isinstance(op, tuple):
+            out.append((op, phys[dst], op[1:], None))
+        else:
+            out.append((op, phys[dst], *(srcs * 2)[:2]))
+    return out, [phys[t] for t in p.terms], num_slots
 
 
 def encode_gate_programs(gates, selector_paths, geometry, wit_col):
     """(int32 program table, uint64 constant values, the most slots a
     program uses, the kernel's operations a row by primitive, as
     `kernel_ops` counts them) for every gate with quotient terms, in gate
-    order (layout in csrc/quotient_sweep.cu). A load
-    names its block (0: the witness oracle's columns, the witness columns
-    from `wit_col` on; 1: the constant columns) and its column as base +
-    instance·stride. Every cell a program loads lies inside the geometry's
-    copy, witness and constant columns, which the kernel relies on."""
+    order (layout in csrc/quotient_sweep.cu). Each gate's captured program
+    is scheduled by `schedule_program`; a gate whose schedule needs more
+    than MAX_SLOTS slots is refused. A load names its block (the witness
+    oracle's columns, the witness columns from `wit_col` on, or the
+    constant columns) and its column as base + instance·stride. Every cell
+    a program loads lies inside the geometry's copy, witness and constant
+    columns, which the kernel relies on."""
     num_consts = geometry.num_constant_columns
     prog = [0]
     kvals = []
@@ -119,10 +177,11 @@ def encode_gate_programs(gates, selector_paths, geometry, wit_col):
         if not gate.num_terms:
             continue
         p = capture_gate_program(gate)
-        if p.num_slots > MAX_SLOTS:
-            raise ValueError(f"gate {gate.name}: {p.num_slots} slots > {MAX_SLOTS}")
-        num_slots = max(num_slots, p.num_slots)
-        if len(p.terms) != gate.num_terms:
+        ins, terms, slots = schedule_program(p)
+        if slots > MAX_SLOTS:
+            raise ValueError(f"gate {gate.name}: {slots} slots > {MAX_SLOTS}")
+        num_slots = max(num_slots, slots)
+        if len(terms) != gate.num_terms:
             raise ValueError(f"gate {gate.name}: term count mismatch")
         path = selector_paths[gid]
         reps, pw, ww = (gate.num_repetitions(geometry), gate.principal_width,
@@ -135,25 +194,23 @@ def encode_gate_programs(gates, selector_paths, geometry, wit_col):
                 or reps * ww > geometry.num_witness_columns or len(path) > num_consts):
             raise ValueError(f"gate {gate.name} does not fit the geometry")
         prog[0] += 1
-        prog += [len(path), *path, reps, p.num_slots]
-        # (block, base, stride) of each load kind
-        where = {"v": (0, 0, pw), "w": (0, wit_col, ww), "c": (1, len(path), 0)}
-        prog.append(len(p.loads))
-        for slot, kind, idx in p.loads:
-            block, base, stride = where[kind]
-            prog += [slot, block, base + idx, stride]
-        prog.append(len(p.consts))
-        for slot, value in p.consts:
-            prog += [slot, len(kvals)]
-            kvals.append(value)
-        prog.append(len(p.ops))
-        for op, dst, a, b in p.ops:
-            prog += [OPCODES[op], dst, a, b]
-        prog.append(len(p.terms))
-        prog += p.terms
-        for op, *_ in p.ops:
-            ops[KERNEL_OP[op]] += reps
-        ops["acc_mac"] += 2 * len(p.terms) * reps  # Σ term·α^t
+        prog += [len(path), *path, reps, slots, len(ins)]
+        # (opcode, base, stride) of each load kind
+        where = {"v": (LOAD_COLS, 0, pw), "w": (LOAD_COLS, wit_col, ww),
+                 "c": (LOAD_CONSTS, len(path), 0)}
+        for op, dst, a, b in ins:
+            if op[0] == "load":
+                code, base, stride = where[a[0]]
+                prog += [code, dst, base + a[1], stride]
+            elif op[0] == "const":
+                prog += [CONST, dst, len(kvals), 0]
+                kvals.append(a[0])
+            else:
+                prog += [OPCODES[op], dst, a, b]
+                ops[KERNEL_OP[op]] += reps
+        prog.append(len(terms))
+        prog += terms
+        ops["acc_mac"] += 2 * len(terms) * reps  # Σ term·α^t
         if path:  # the selector, then the reduced sum times it
             ops.update(mul_lazy=len(path), sub=path.count(0), reduce_acc_lazy=2, acc_mac=2)
         else:
@@ -353,31 +410,28 @@ def sweep_plain(plan: SweepPlan, ops: Operands, table):
     for _ in range(num_gates if plan.parts & GATES else 0):
         (path_len,) = take(1)
         sel = selector_from_consts(consts, take(path_len))
-        reps, _num_slots = take(2)
+        reps, _num_slots, num_ins = take(3)
         body = pc
         gate_acc = (zero, zero)
         for inst in range(reps):
             pc = body
             slots = {}
-            for _i in range(take(1)[0]):
-                slot, block, base, stride = take(4)
-                slots[slot] = (consts if block else ops.cols)[base + inst * stride]
-            for _i in range(take(1)[0]):
-                slot, k = take(2)
-                slots[slot] = kvals[k]
-            for _i in range(take(1)[0]):
+            for _i in range(num_ins):
                 op, dst, a, b = take(4)
-                x, y = slots[a], slots[b]
-                if op == OPCODES["add"]:
-                    slots[dst] = gf.add(x, y)
+                if op in (LOAD_COLS, LOAD_CONSTS):
+                    slots[dst] = (ops.cols if op == LOAD_COLS else consts)[a + inst * b]
+                elif op == CONST:
+                    slots[dst] = kvals[a]
+                elif op == OPCODES["add"]:
+                    slots[dst] = gf.add(slots[a], slots[b])
                 elif op == OPCODES["sub"]:
-                    slots[dst] = gf.sub(x, y)
+                    slots[dst] = gf.sub(slots[a], slots[b])
                 elif op == OPCODES["mul"]:
-                    slots[dst] = gf.mul(x, y)
+                    slots[dst] = gf.mul(slots[a], slots[b])
                 elif op == OPCODES["neg"]:
-                    slots[dst] = gf.neg(x)
+                    slots[dst] = gf.neg(slots[a])
                 else:
-                    slots[dst] = gf.double(x)
+                    slots[dst] = gf.double(slots[a])
             for slot in take(take(1)[0]):
                 term = slots[slot]
                 gate_acc = ext_f.add(gate_acc, (gf.mul(term, a0[t]), gf.mul(term, a1[t])))

@@ -28,14 +28,20 @@ Phases, each printing its seconds:
      from the LDE length) and its whole chain (every entry of the
      schedule, one launch each, at its size); and the forward
      and inverse NTT (B1-B3) at 2^17, 2^21, 2^22 and 2^23, where their pass
-     plans change. The bound of the Goldilocks rows is the busier of the
+     plans change. The keccak256 2^18 path gives every kernel its shapes;
+     blake2s at 2^18 has the same oracle widths, so only the sweep (B6),
+     whose gate programs differ, is checked again there; and gate_terms_fn
+     at three programs no path runs at once: the byte tri-add, the u32
+     fma and a 12×12 matrix gate, each alone over 2^18 rows of sha256's
+     columns. The bound of the Goldilocks rows is the busier of the
      FMA and ALU pipes, priced by the SASS of each field operation, for the
      lesser of the plain version's operations and the kernel's own. Each
      row's launches_per_call is the wrapper's count over its first call;
      a fold row fails unless that is its schedule's count;
   4. small circuits set up and proved on the card and on the CPU: fma at
      2^10, the xor4 lookup circuit at 2^9, sha256(b"abc") at 2^14, the
-     general-lookup circuit at 2^9 and the witness-column circuit at 2^5,
+     general-lookup circuit at 2^9, the witness-column circuit at 2^5 and
+     the gate zoo (every gate of cs/gates/simple.py and u32.py) at 2^9,
      and over BabyBear the fma chain and the xor4 lookup circuit at 2^10.
      The two setup caps of each must be equal, the two proofs the same JSON
      text, and the port's verifier must accept (a BabyBear proof: the
@@ -84,9 +90,20 @@ Phases, each printing its seconds:
      sha256's proof config (LDE 8, cap 16, 50 queries, final degree 16),
      the public input checked against the accumulator's host value;
  14. the BabyBear mini-STARK (prover/bb_prover.py) at 2^20 rows, proved on
-     the card and accepted by its verifier, B8 launched.
+     the card and accepted by its verifier, B8 launched;
+ 15. keccak256 (the JAX package's tests/test_keccak.py circuit at sha256's
+     geometry and lookups: bytes through the 8-bit xor and and tables,
+     rotations through byte-split tables) of a message that fills 2^18
+     rows, with sha256's proof config, driven as phase 5 (the prover's rule
+     streams its commits at LDE 8, which the phase checks), the digest
+     checked against hashes/keccak_host.py, then profiled as phase 6;
+ 16. the same for blake2s at 2^18 rows (its additions on the byte tri-add
+     gate), the digest checked against hashlib.
+     Both circuits are synthesized in child processes started before
+     phase 3, each timing its own synthesis, so that their seconds of
+     Python overlap the card's phases.
 
-Prints the seven profile lines, the kernel table as one JSON line, the card
+Prints the nine profile lines, the kernel table as one JSON line, the card
 line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, if any phase
 fails, if no CUDA device is available, or if the package is missing.
@@ -98,8 +115,10 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -113,6 +132,10 @@ WIT_PATH = f"witness columns 2^{LOG_N}"
 BB_FMA_PATH = f"babybear fma 2^{LOG_N}"
 BB_XOR_PATH = f"babybear xor4 2^{LOG_N}"
 BB_MINI_PATH = f"babybear mini-STARK 2^{LOG_N}"
+HASH_LOG_N = 18  # keccak256's tables alone take 2^17 rows
+KECCAK_PATH = f"keccak256 2^{HASH_LOG_N}"
+BLAKE_PATH = f"blake2s 2^{HASH_LOG_N}"
+GATES_PATH = f"gate_terms_fn alone, 2^{HASH_LOG_N}"
 # the NTT (B1-B3) at the sizes where its pass plans change
 NTT_SIZES = (17, 21, 22, 23)
 SIZES_PATH = "NTT sizes 2^17-2^23"
@@ -360,12 +383,20 @@ def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
+def kernel_parity(torch, paths, sweep_paths, bb_paths, int_ops_per_s: float) -> list:
     """Every kernel against its plain version at the shapes each prove path
     gives it. `paths` (Goldilocks) and `bb_paths` (BabyBear) hold (path, an
     assembly of the path's circuit at a small size, log2 of the path's
-    rows, its proof config)."""
+    rows, its proof config); `sweep_paths` (path, assembly, log2 rows) the
+    paths whose oracles have the widths of one in `paths`, where only the
+    sweep's gate programs differ: only B6 runs at their shapes."""
+    import numpy as np
+
     from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch.circuits import SHA256_GEOMETRY
+    from boojum_tpu_torch.cs.gates import (
+        ByteTriAddGate, MatrixMultiplicationGate, U32FmaGate,
+    )
     from boojum_tpu_torch.field import babybear as bb
     from boojum_tpu_torch.field import goldilocks as gf
     from boojum_tpu_torch.hashes import poseidon2 as p2
@@ -490,24 +521,20 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
         N = n * L
         tree, sel_paths = build_selector_tree(asm.gates)
         Q = quotient_degree_for(asm, tree)
-        lp = asm.lookup_params if asm.lookups_enabled else None
-        Ct = asm.num_copy_cols_total
-        plan = qs.SweepPlan(asm.gates, sel_paths, asm.geometry, Ct, dev, lp)
+        plan, sweep_args, sweep_row = sweep_case(asm, log_n)
         Cw, Cs, C2 = plan.num_wit_rows, plan.num_setup_cols, plan.num_s2_rows
-        table = qs.sweep_table(plan, (3, 5), (7, 11), (13, 17),
-                               [int(v) for v in range(1, Ct + 1)], dev,
-                               (19, 23), (29, 31))
-        wit, setup_m = rand(Cw, n), rand(Cs, n)
-        sweep_args = (wit, setup_m, rand(C2, n), rand(2, n), rand(n), rand(n), rand(n))
+        wit, setup_m = sweep_args[:2]
         scale_row = ntt.lde_scale_rows(log_n, Q, dev)[1]
         layout = OracleLayout.for_assembly(asm, sel_paths)
         streams = use_streamed_lde(layout.streamed_columns_estimate(Q, L), N)
-        setup_streams = use_streamed_lde(Cs, N)
-        if streams and setup_streams:
-            raise AssertionError("no materialized column commit on this path")
-        Cl = Cs if streams else Cw  # the widest leaf-hash commit
-        leaves, layer = rand(Cl, N), rand(N, 4)
-        sweep_rows = Cw + Cs + C2 + 2 + 3
+        # the widest leaf-hash commit: the witness's, where the prover
+        # materializes, else the setup's; where both stream, the first FRI
+        # oracle's, 2^(k+1) words a leaf
+        Cl, Nl = (Cs if streams else Cw), N
+        if streams and use_streamed_lde(Cs, N):
+            k0 = fri.fold_schedule(n, cfg.fri_final_degree)[0]
+            Cl, Nl = 2 << k0, N >> k0
+        leaves, layer = rand(Cl, Nl), rand(N, 4)
         b4 = []
         if streams:
             # the widest block a streamed commit absorbs
@@ -551,18 +578,35 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
             ("poseidon2_leaf",
              lambda: p2.leaf_hash(leaves),
              lambda: p2.leaf_hash_plain(leaves),
-             w * (Cl * N + 4 * N), f"({Cl}, 2^{log_n + L.bit_length() - 1}) leaves"),
+             w * (Cl * Nl + 4 * Nl), f"({Cl}, 2^{Nl.bit_length() - 1}) leaves"),
             ("poseidon2_node",
              lambda: p2.node_hash(layer),
              lambda: p2.node_hash_plain(layer),
              w * (4 * N + 2 * N), f"({N}, 4) -> ({N // 2}, 4)"),
-            ("quotient_sweep",
-             own_ops(lambda: torch.stack(qs.coset_terms(plan, *sweep_args, table)),
-                     n * sweep_kernel_ops(plan, True)),
-             lambda: torch.stack(qs.coset_terms_plain(plan, *sweep_args, table)),
-             w * (sweep_rows * n + table.numel() + 2 * n),
-             f"one coset of 2^{log_n} rows: {Cw} witness, {Cs} setup, {C2} stage-2 rows"),
+            sweep_row,
         ] + fold_cases(n, N, cfg.fri_final_degree)
+
+    def sweep_case(asm, log_n):
+        """(plan, operands, the quotient_sweep row) of one coset of the
+        prove of `asm`'s circuit at 2^log_n rows, on random words."""
+        n = 1 << log_n
+        _tree, sel_paths = build_selector_tree(asm.gates)
+        lp = asm.lookup_params if asm.lookups_enabled else None
+        Ct = asm.num_copy_cols_total
+        plan = qs.SweepPlan(asm.gates, sel_paths, asm.geometry, Ct, dev, lp)
+        Cw, Cs, C2 = plan.num_wit_rows, plan.num_setup_cols, plan.num_s2_rows
+        table = qs.sweep_table(plan, (3, 5), (7, 11), (13, 17),
+                               [int(v) for v in range(1, Ct + 1)], dev,
+                               (19, 23), (29, 31))
+        args = (rand(Cw, n), rand(Cs, n), rand(C2, n), rand(2, n), rand(n), rand(n), rand(n))
+        return plan, args, (
+            "quotient_sweep",
+            own_ops(lambda: torch.stack(qs.coset_terms(plan, *args, table)),
+                    n * sweep_kernel_ops(plan, True)),
+            lambda: torch.stack(qs.coset_terms_plain(plan, *args, table)),
+            w * ((Cw + Cs + C2 + 2 + 3) * n + table.numel() + 2 * n),
+            f"one coset of 2^{log_n} rows: {Cw} witness, {Cs} setup, {C2} stage-2 rows, "
+            f"{plan.num_slots} slots")
 
     def entry_cases():
         """(entry, path, kernel call, plain call, bytes moved, shape) of each
@@ -573,14 +617,15 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
         wit_asm = next(asm for p, asm, _l, _c in paths if p == WIT_PATH)
         _tree, wit_paths = build_selector_tree(wit_asm.gates)
         gate_fn = qs.gate_terms_fn(wit_asm.gates, wit_paths, wit_asm.geometry, dev)
-        n, ns = 1 << LOG_N, 1 << SHA_LOG_N
+        n, ns, nh = 1 << LOG_N, 1 << SHA_LOG_N, 1 << HASH_LOG_N
         pows = lambda k: [(3 + i, 5 + i) for i in range(k)]  # noqa: E731
         lk = lambda r, wd: ((19, 23), (29, 31), pows(r + 1), r, wd)  # noqa: E731
         cases = [
             ("gate_terms_fn", WIT_PATH, gate_fn.launch,
              (rand(8, n), rand(4, n), rand(6, n),
               pows(qs.num_gate_terms(wit_asm.gates, wit_asm.geometry))),
-             f"2^{LOG_N} rows: 8 copy, 4 witness, 6 constant columns"),
+             f"2^{LOG_N} rows: 8 copy, 4 witness, 6 constant columns",
+             gate_rows_read(wit_asm.gates, wit_paths, wit_asm.geometry, 8)),
             ("cp_quotient", GEN_PATH, qs.cp_quotient_launch,
              (rand(4, n), rand(2, n), rand(8, n), rand(8, n), rand(n), rand(n), (3, 5),
               (7, 11), pows(3), list(range(1, 9)), 4),
@@ -592,11 +637,28 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
              (rand(18, ns), rand(32, ns), rand(ns), rand(5, ns), rand(ns), *lk(8, 4)),
              f"2^{SHA_LOG_N} rows: 8 sub-arguments of width 4"),
         ]
+        # the programs the renumbered slots let the kernel take: the byte
+        # tri-add (43 values, blake2s), the u32 fma (33) and a 12×12 matrix
+        # (480), each alone over sha256's columns (no selector)
+        matrix = [[int(v) for v in row] for row in np.random.default_rng(12).integers(
+            0, gf.P, (12, 12), dtype=np.uint64)]
+        for gate, path in ((ByteTriAddGate.instance(), BLAKE_PATH),
+                           (U32FmaGate.instance(), GATES_PATH),
+                           (MatrixMultiplicationGate("mds12", matrix), GATES_PATH)):
+            fn = qs.gate_terms_fn([gate], [[]], SHA256_GEOMETRY, dev)
+            reps = gate.num_repetitions(SHA256_GEOMETRY)
+            slots = qs.encode_gate_programs([gate], [[]], SHA256_GEOMETRY, 60)[2]
+            cases.append(("gate_terms_fn", path, fn.launch,
+                          (rand(60, nh), None, rand(8, nh), pows(reps * gate.num_terms)),
+                          f"2^{HASH_LOG_N} rows: {gate.name} x{reps}, {slots} slots",
+                          gate_rows_read([gate], [[]], SHA256_GEOMETRY, 60)))
         out = []
-        for entry, path, launch, a, shape in cases:
+        for entry, path, launch, a, shape, *rows_read in cases:
             plan, ops, table = launch(*a)
-            nbytes = w * (sum(t.numel() for t in ops.tensors() if t is not None)
-                          + table.numel() + 2 * ops.n)
+            # the gate terms read only the columns their programs load
+            read = (rows_read[0] * ops.n if rows_read
+                    else sum(t.numel() for t in ops.tensors() if t is not None))
+            nbytes = w * (read + table.numel() + 2 * ops.n)
             out.append((entry, path,
                         own_ops(lambda b=(plan, ops, table): torch.stack(qs.sweep(*b)),
                                 ops.n * sweep_kernel_ops(plan, False)),
@@ -630,6 +692,9 @@ def kernel_parity(torch, paths, bb_paths, int_ops_per_s: float) -> list:
     cases = [(name, None, path, kern, plain, nbytes, shape, None)
              for path, asm, log_n, cfg in paths
              for name, kern, plain, nbytes, shape in path_cases(asm, log_n, cfg)]
+    cases += [(name, None, path, kern, plain, nbytes, shape, None)
+              for path, asm, log_n in sweep_paths
+              for name, kern, plain, nbytes, shape in [sweep_case(asm, log_n)[2]]]
     cases += [(name, None, SIZES_PATH, kern, plain, nbytes, shape, None)
               for name, kern, plain, nbytes, shape in size_cases()]
     cases += [("quotient_sweep", entry, path, kern, plain, nbytes, shape, None)
@@ -746,16 +811,50 @@ proof = prove(asm, setup, cfg, device="cpu")
 print(json.dumps({"cap": [list(c) for c in setup.vk.setup_merkle_cap],
                   "proof": proof.to_json()}))
 """
+# Phases 15 and 16's synthesis (pure Python, a minute or more each): a child
+# process started before phase 3 synthesizes the circuit at 2^log_n rows and
+# pickles its assembly, its digest bytes and its own seconds to a file.
+CPU_HASH_SYNTHESIS = """
+import os, pickle, sys, time
+os.nice(10)
+sys.path.insert(0, sys.argv[1])
+from boojum_tpu_torch import circuits, gadgets
+which, log_n, out = sys.argv[2], int(sys.argv[3]), sys.argv[4]
+t = time.perf_counter()
+cs, digest = getattr(circuits, "build_" + which)(log_n)
+asm = cs.into_assembly()
+secs = time.perf_counter() - t
+with open(out, "wb") as f:
+    pickle.dump({"asm": asm, "synthesis_s": secs,
+                 "digest": getattr(gadgets, which + "_digest_bytes")(cs, digest)}, f,
+                protocol=pickle.HIGHEST_PROTOCOL)
+"""
 CHILDREN: list = []  # stopped when the script ends
+TEMP_DIRS: list = []  # removed when the script ends
 
 
-def start_cpu_child(code: str) -> subprocess.Popen:
+def start_cpu_child(code: str, *args: str) -> subprocess.Popen:
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.Popen(
-        [sys.executable, "-c", code, str(Path(__file__).resolve().parent)],
+        [sys.executable, "-c", code, str(Path(__file__).resolve().parent), *args],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     CHILDREN.append(proc)
     return proc
+
+
+def synthesis_child_result(label: str, proc: subprocess.Popen, path: str) -> dict:
+    """The assembly, digest bytes and synthesis seconds a synthesis child
+    pickled, once it ends; the file is removed."""
+    import pickle
+
+    _out, err = proc.communicate(timeout=1100)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: the synthesis child failed (rc {proc.returncode}):\n"
+                             f"{err[-4000:]}")
+    with open(path, "rb") as f:
+        res = pickle.load(f)
+    os.remove(path)
+    return res
 
 
 def cpu_child_result(label: str, proc: subprocess.Popen):
@@ -799,7 +898,8 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
     """One path through the entry points a user calls, with the launch
     counts set to 0 just before synthesis and read after verification.
     synthesize() returns (assembly, a check of the circuit's output that
-    takes the proof); the assembly must have 2^log_n rows, the size phase 3
+    takes the proof), and a third item, the synthesis seconds, where a
+    child process synthesized it; the assembly must have 2^log_n rows, the size phase 3
     checked the kernels at. `streams` says whether the prover's rule must
     stream this path's commits: the absorb kernel then launches on the
     prove, and otherwise never on the path. A BabyBear path launches B8 and
@@ -810,9 +910,10 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
 
     K.reset_launches()
     t = time.perf_counter()
-    asm, check_output = synthesize()
-    synth_s = time.perf_counter() - t
-    log(f"[{phase}] {label}: synthesis {synth_s:.1f} s, {asm.trace_len} rows")
+    asm, check_output, *child_s = synthesize()
+    synth_s = child_s[0] if child_s else time.perf_counter() - t
+    log(f"[{phase}] {label}: synthesis {synth_s:.1f} s"
+        f"{' in a child process' if child_s else ''}, {asm.trace_len} rows")
     if asm.trace_len != 1 << log_n:
         raise AssertionError(f"{label}: {asm.trace_len} rows, not 2^{log_n}")
     t = time.perf_counter()
@@ -903,6 +1004,28 @@ def drive_mini_stark(torch, label, log_n, phase) -> dict:
         f"launches {launches}")
     return dict(launches=launches, prove_cold_s=cold_s, prove_warm_s=warm_s,
                 verify_s=verify_s, peak_device_memory_gib=peak)
+
+
+def gate_rows_read(gates, selector_paths, geometry, wit_col: int) -> int:
+    """The operand columns (of n words each) that a gate-terms launch reads:
+    every column each gate's program loads, at each of its instances, and
+    each selector's constant column; a column two gates read counts once."""
+    from boojum_tpu_torch.cs.gate_capture import capture_gate_program
+
+    cells = set()
+    for gate, path in zip(gates, selector_paths):
+        if not gate.num_terms:
+            continue
+        reps = gate.num_repetitions(geometry)
+        cells.update(("consts", i) for i in range(len(path)))
+        for _slot, kind, idx in capture_gate_program(gate).loads:
+            if kind == "c":  # one constant column for every instance
+                cells.add(("consts", len(path) + idx))
+            else:
+                base, stride = ((0, gate.principal_width) if kind == "v"
+                                else (wit_col, gate.witness_width))
+                cells.update(("cols", base + r * stride + idx) for r in range(reps))
+    return len(cells)
 
 
 def fma_chain_value(log_n: int, p: int) -> int:
@@ -1015,12 +1138,15 @@ def main() -> int:
         return 2
     from boojum_tpu_torch import kernels as K
     from boojum_tpu_torch.circuits import (
-        bench_message, build_fma, build_general_lookup, build_sha256, build_xor_lookup,
-        build_zero_check_witness, fma_proof_config, sha256_proof_config,
-        small_proof_config, xor_lookup_proof_config,
+        bench_message, blake2s_message_len, build_blake2s, build_fma, build_gate_zoo,
+        build_general_lookup, build_keccak256, build_sha256, build_xor_lookup,
+        build_zero_check_witness, fma_proof_config, gate_zoo_proof_config,
+        keccak256_message_len, sha256_proof_config, small_proof_config,
+        xor_lookup_proof_config,
     )
     from boojum_tpu_torch.field.spec import BABYBEAR
     from boojum_tpu_torch.gadgets import sha256_digest_bytes
+    from boojum_tpu_torch.hashes.keccak_host import keccak256 as host_keccak256
     from boojum_tpu_torch.ntt import ntt
     from boojum_tpu_torch.prover import ProofConfig, prove
 
@@ -1039,6 +1165,12 @@ def main() -> int:
         f"({time.perf_counter() - t:.1f} s)")
 
     sha_abc_child = start_cpu_child(CPU_SHA_ABC)
+    hash_children = {}
+    TEMP_DIRS.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+    for which in ("keccak256", "blake2s"):
+        out = os.path.join(TEMP_DIRS[-1], f"{which}.pickle")
+        hash_children[which] = (
+            start_cpu_child(CPU_HASH_SYNTHESIS, which, str(HASH_LOG_N), out), out)
     t = time.perf_counter()
     asm10 = build_fma(10).into_assembly()
     cs_abc, digest_abc = build_sha256(message=b"abc")
@@ -1047,14 +1179,20 @@ def main() -> int:
     asm_wit = build_zero_check_witness()[0].into_assembly()
     asm_bb_fma = build_fma(10, field="babybear").into_assembly()
     asm_bb_xor = build_xor_lookup(600, 1 << 11, field="babybear")[0].into_assembly()
+    # the JAX tests' keccak256 and blake2s: their gates and oracle widths are
+    # the 2^18 paths'
+    asm_keccak = build_keccak256()[0].into_assembly()
+    asm_blake = build_blake2s()[0].into_assembly()
     log(f"[3] kernels against their plain versions at the {FMA_PATH}, {SHA_PATH}, "
-        f"{GEN_PATH}, {WIT_PATH}, {BB_FMA_PATH} and {BB_XOR_PATH} proves' shapes")
+        f"{GEN_PATH}, {WIT_PATH}, {KECCAK_PATH}, {BLAKE_PATH} (the sweep), {BB_FMA_PATH} "
+        f"and {BB_XOR_PATH} proves' shapes")
     rows = kernel_parity(torch, [
         (FMA_PATH, asm10, LOG_N, fma_proof_config()),
         (SHA_PATH, asm_abc, SHA_LOG_N, sha256_proof_config()),
         (GEN_PATH, asm_gen, LOG_N, sha256_proof_config()),
         (WIT_PATH, asm_wit, LOG_N, sha256_proof_config()),
-    ], [
+        (KECCAK_PATH, asm_keccak, HASH_LOG_N, sha256_proof_config()),
+    ], [(BLAKE_PATH, asm_blake, HASH_LOG_N)], [
         (BB_FMA_PATH, asm_bb_fma, LOG_N, fma_proof_config()),
         (BB_XOR_PATH, asm_bb_xor, LOG_N, sha256_proof_config()),
     ], int_ops_per_s)
@@ -1073,6 +1211,9 @@ def main() -> int:
             torch, "general lookups 2^9", asm_gen, small_proof_config()),
         "witness columns 2^5": card_against_cpu(
             torch, "witness columns 2^5", asm_wit, small_proof_config()),
+        "gate zoo 2^9": card_against_cpu(
+            torch, "gate zoo 2^9", build_gate_zoo(9)[0].into_assembly(),
+            gate_zoo_proof_config()),
     }
     # the JAX package's tests/test_bb_full_prover.py config
     bb_small_cfg = ProofConfig(fri_lde_factor=2, num_queries=8, fri_final_degree=8)
@@ -1197,6 +1338,37 @@ def main() -> int:
     mini = drive_mini_stark(torch, BB_MINI_PATH, LOG_N, 14)
     paths[BB_MINI_PATH] = mini.pop("launches")
     profiles.append(dict(circuit=BB_MINI_PATH, card=card, **mini))
+    # keccak256 and blake2s at 2^18 rows, synthesized by the children
+    # both stream their commits at LDE 8, as phases 5, 9 and 10 do
+    for phase, label, which, message_len, host in (
+            (15, KECCAK_PATH, "keccak256", keccak256_message_len, host_keccak256),
+            (16, BLAKE_PATH, "blake2s", blake2s_message_len,
+             lambda m: hashlib.blake2s(m).digest())):
+        message = bench_message(message_len(HASH_LOG_N))
+
+        def circuit(label=label, which=which, host=host, message=message):
+            res = synthesis_child_result(label, *hash_children[which])
+
+            def check(_proof):
+                if res["digest"] != host(message):
+                    raise AssertionError(f"{label}: the circuit's digest of {len(message)} "
+                                         f"bytes differs from the host's")
+
+            return res["asm"], check, res["synthesis_s"]
+
+        cfg = sha256_proof_config()
+        run = drive_path(torch, label, circuit, cfg, HASH_LOG_N, phase, True)
+        t = time.perf_counter()
+        prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
+        prof.update(circuit=label, message_bytes=len(message), card=card, **{
+            k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s", "rounds_cold_s",
+                                "verify_s", "peak_device_memory_gib", "launches_on_prove")})
+        log(f"[{phase}] {len(message)} B, digest checked; warm prove "
+            f"{prof['prove_warm_s']:.3f} s, device busy {prof['device_busy_ms']:.1f} ms, "
+            f"idle share {prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
+        del run["asm"], run["setup"]
+        profiles.append(prof)
+        paths[label] = run["launches"]
     for prof in profiles:
         print(json.dumps({"profile": prof}))
 
@@ -1229,4 +1401,6 @@ if __name__ == "__main__":
             if child.poll() is None:
                 child.kill()
                 child.wait()
+        for d in TEMP_DIRS:
+            shutil.rmtree(d, ignore_errors=True)
     sys.exit(code)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""The JAX prover against boojum_tpu_torch on sha256 over a short message,
-on the CPU, the port with the plain version of every kernel.
+"""The JAX prover against boojum_tpu_torch on sha256, blake2s or keccak256
+over a short message, on the CPU, the port with the plain version of every
+kernel.
 
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py [--message abc]
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --bench-bytes 8192
+    JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --circuit blake2s
 
 Synthesizes bench.py's sha256 circuit (60 copy columns, 8 constant columns,
 degree 7, width-4 x8 specialized lookups) in both packages, sets it up and
@@ -13,8 +15,13 @@ the checkpoint streams and the proof JSON texts are equal, and whether each
 package's verifier accepts the other's proof. sha256(b"abc") pads to 2^14
 rows. `--bench-bytes N` takes bench.py's message of N bytes (byte i is
 i mod 255) in place of `--message`: 8192 bytes, bench.py's headline, pad
-to 2^16 rows. Both sides size the constraint system's capacity as
-bench.py does. Too slow for the tier-1 tests, so it is run by hand.
+to 2^16 rows. The port sizes the constraint system's capacity as
+bench.py does, and the JAX side takes the port's. `--circuit blake2s` or
+`keccak256` proves that hash of the JAX package's tests/test_blake2s.py or
+tests/test_keccak.py at the same geometry, lookups and config, by default
+of those tests' messages ("hello TPU blake2s": 2^17 rows, the xor8
+table's size; "hello TPU keccak": 2^18, the xor8 and and8 tables'). Too
+slow for the tier-1 tests, so it is run by hand.
 """
 
 import argparse
@@ -29,6 +36,8 @@ import conftest  # noqa: E402,F401  (CPU platform, persistent compile cache)
 from boojum_tpu.cs.implementations import ConstraintSystem  # noqa: E402
 from boojum_tpu.cs.types import CSGeometry, LookupParameters  # noqa: E402
 from boojum_tpu.gadgets import allocate_u8_input, sha256  # noqa: E402
+from boojum_tpu.gadgets.blake2s import blake2s  # noqa: E402
+from boojum_tpu.gadgets.keccak256 import keccak256  # noqa: E402
 from boojum_tpu.prover import ProofConfig  # noqa: E402
 from boojum_tpu.prover import generate_setup as jgenerate_setup  # noqa: E402
 from boojum_tpu.prover import prove as jprove  # noqa: E402
@@ -37,8 +46,13 @@ from boojum_tpu.prover.proof import Proof as JProof  # noqa: E402
 from boojum_tpu.utils.report import CheckpointLog as JCheckpointLog  # noqa: E402
 from boojum_tpu.utils.report import install_checkpoint_log  # noqa: E402
 from boojum_tpu_torch.circuits import (  # noqa: E402
-    bench_message, build_sha256, sha256_capacity, sha256_proof_config,
+    bench_message, build_blake2s, build_keccak256, build_sha256, sha256_proof_config,
 )
+
+# circuit: (the JAX gadget, the port's build function, the JAX tests' message)
+CIRCUITS = {"sha256": (sha256, build_sha256, "abc"),
+            "blake2s": (blake2s, build_blake2s, "hello TPU blake2s"),
+            "keccak256": (keccak256, build_keccak256, "hello TPU keccak")}
 from boojum_tpu_torch.prover import generate_setup, prove, verify  # noqa: E402
 from boojum_tpu_torch.prover.proof import Proof  # noqa: E402
 from boojum_tpu_torch.utils.report import CheckpointLog  # noqa: E402
@@ -46,18 +60,22 @@ from boojum_tpu_torch.utils.report import CheckpointLog  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--message", default="abc", help="the message, as text")
+    ap.add_argument("--circuit", choices=sorted(CIRCUITS), default="sha256")
+    ap.add_argument("--message", default=None,
+                    help="the message, as text (default: the circuit's JAX test's)")
     ap.add_argument("--bench-bytes", type=int, default=None,
                     help="bench.py's message of this many bytes, in place of --message")
     args = ap.parse_args()
+    jhash, build, default_message = CIRCUITS[args.circuit]
     if args.bench_bytes is None:
-        message = args.message.encode()
+        message = (args.message or default_message).encode()
     else:
         message = bench_message(args.bench_bytes)
-    out = {"message_bytes": len(message), "bench_message": args.bench_bytes is not None}
+    out = {"circuit": args.circuit, "message_bytes": len(message),
+           "bench_message": args.bench_bytes is not None}
 
     t = time.perf_counter()
-    cs, _digest = build_sha256(message=message)
+    cs, _digest = build(message=message)
     asm = cs.into_assembly()
     cfg = sha256_proof_config()
     setup = generate_setup(asm, cfg, device="cpu")
@@ -68,9 +86,9 @@ def main() -> int:
     print(json.dumps({"port_done": out}), flush=True)
 
     t = time.perf_counter()
-    jcs = ConstraintSystem(CSGeometry(60, 0, 8, 7), sha256_capacity(len(message)),
+    jcs = ConstraintSystem(CSGeometry(60, 0, 8, 7), cs.max_trace_len,
                            lookup_params=LookupParameters(width=4, num_repetitions=8))
-    sha256(jcs, allocate_u8_input(jcs, message))
+    jhash(jcs, allocate_u8_input(jcs, message))
     jasm = jcs.into_assembly()
     jcfg = ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=16, num_queries=50,
                        pow_bits=0, fri_final_degree=16)

@@ -1,10 +1,13 @@
 """Each CUDA kernel of boojum_tpu_torch against its plain PyTorch version on
 the card, word for word (tolerance 0), the quotient sweep in every layout
-and through its standalone entries, and the fma 2^10, xor4 lookup 2^9,
-general-lookup 2^9 and witness-column 2^5 proofs identical on the card and
-the CPU, materialized and streamed; kernel B8 (BabyBear Poseidon2) and the
-BabyBear fma, xor4 and mini-STARK proofs at 2^10 likewise. Marked `cuda`: they skip where no card is present and run on the
-card with `python -m pytest tests/port/test_torch_kernels.py`."""
+(the keccak256, blake2s and gate-zoo circuits included) and through its
+standalone entries (gate_terms_fn at every gate of cs/gates/simple.py and
+cs/gates/u32.py, the 12×12 matrix gate included), and the fma 2^10, xor4
+lookup 2^9, general-lookup 2^9 and witness-column 2^5 proofs identical on
+the card and the CPU, materialized and streamed; kernel B8 (BabyBear
+Poseidon2) and the BabyBear fma, xor4 and mini-STARK proofs at 2^10
+likewise. Marked `cuda`: they skip where no card is present and run on
+the card with `python -m pytest tests/port/test_torch_kernels.py`."""
 
 import functools
 
@@ -13,10 +16,12 @@ import pytest
 import torch
 
 from boojum_tpu_torch.circuits import (
-    build_fma, build_general_lookup, build_sha256, build_xor_lookup,
-    build_zero_check_witness, fma_proof_config, small_proof_config,
-    xor_lookup_proof_config,
+    build_blake2s, build_fma, build_gate_zoo, build_general_lookup, build_keccak256,
+    build_sha256, build_xor_lookup, build_zero_check_witness, fma_proof_config,
+    small_proof_config, xor_lookup_proof_config,
 )
+from boojum_tpu_torch.cs.gates import simple, u32
+from boojum_tpu_torch.cs.types import CSGeometry
 from boojum_tpu_torch.field import goldilocks as gf
 from boojum_tpu_torch.hashes import poseidon2 as p2
 from boojum_tpu_torch.ntt import ntt
@@ -242,13 +247,17 @@ def _sweep_circuit(circuit):
     cs = {"fma": lambda: build_fma(8),
           "sha256": lambda: build_sha256(message=b"abc")[0],
           "general": lambda: build_general_lookup()[0],
-          "witness": lambda: build_zero_check_witness()[0]}[circuit]()
+          "witness": lambda: build_zero_check_witness()[0],
+          "keccak256": lambda: build_keccak256()[0],
+          "blake2s": lambda: build_blake2s()[0],
+          "gate zoo": lambda: build_gate_zoo()[0]}[circuit]()
     return cs.into_assembly()
 
 
 @pytest.mark.parametrize("geometry", _GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
 @pytest.mark.parametrize("fill", ["random", "p-1", "zero", "high"])
-@pytest.mark.parametrize("circuit", ["fma", "sha256", "general", "witness"])
+@pytest.mark.parametrize("circuit", ["fma", "sha256", "general", "witness", "keccak256",
+                                     "blake2s", "gate zoo"])
 def test_sweep_kernel_matches_plain_on_extreme_words(dev, monkeypatch, circuit, fill,
                                                      geometry):
     """The whole sweep with every operand and challenge of one kind, in each
@@ -302,6 +311,49 @@ def test_sweep_entry_kernel_matches_plain_on_extreme_words(dev, monkeypatch, ent
         args = (r(6, n), r(6, n), r(n), r(4, n), r(n), r(n), (lb, lb), (lg, lg), pows(3),
                 2, 3)
     built = launch(*args)
+    for got, want in zip(qs.sweep(*built), qs.sweep_plain(*built)):
+        _same(got, want)
+
+
+# every gate of cs/gates/simple.py and cs/gates/u32.py with quotient terms,
+# the parametrised ones at a few parameters, each alone over 60 copy, 2
+# witness and 8 constant columns
+_MATRIX12 = [[(i * 12 + j) * 0x9E3779B97F4A7C15 % gf.P for j in range(12)] for i in range(12)]
+_GATES = {
+    **{name: getattr(simple, name).instance() for name in (
+        "FmaGate", "ConstantsAllocatorGate", "BooleanConstraintGate", "ReductionGate",
+        "ReductionByPowersGate", "SelectionGate", "ParallelSelectionGate",
+        "ConditionalSwapGate", "DotProductGate", "QuadraticCombinationGate", "ZeroCheckGate",
+        "ZeroCheckWitnessGate", "SimpleNonlinearityGate")},
+    **{name: getattr(u32, name).instance() for name in (
+        "U32AddGate", "U32SubGate", "U32FmaGate", "U32TriAddCarryAsChunkGate",
+        "ByteTriAddGate")},
+    "UIntXAddGate8": u32.UIntXAddGate(8),
+    "UIntXAddGate16": u32.UIntXAddGate(16),
+    "MatrixMultiplicationGate3": simple.MatrixMultiplicationGate("m3", _MATRIX12[:3]),
+    "MatrixMultiplicationGate12": simple.MatrixMultiplicationGate("m12", _MATRIX12),
+    "ExplicitConstantsAllocatorGate": simple.ExplicitConstantsAllocatorGate((5, 1 << 32)),
+    "BoundedGateWrapper": simple.BoundedGateWrapper(u32.U32FmaGate.instance(), 3),
+}
+
+
+@pytest.mark.parametrize("geometry", _GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("fill", ["random", "p-1", "high"])
+@pytest.mark.parametrize("gate", sorted(_GATES))
+def test_gate_terms_kernel_matches_plain_at_every_gate(dev, monkeypatch, gate, fill,
+                                                       geometry):
+    """gate_terms_fn at each gate's program, as the sweep's slots renumbered
+    by liveness encode it, in each launch geometry."""
+    monkeypatch.setattr(qs, "launch_geometry", lambda n, parts: geometry)
+    g = _GATES[gate]
+    geom = CSGeometry(60, 2, 8, 8)
+    launch = qs.gate_terms_fn([g], [[]], geom, dev).launch
+    rng = np.random.default_rng(7)
+    n = 1 << 11
+    r = lambda *shape: _filled(rng, fill, *shape, device=dev)  # noqa: E731
+    a = _CHALLENGES[fill][0]
+    built = launch(r(60, n), r(2, n), r(8, n),
+                   [(a + i, a) for i in range(qs.num_gate_terms([g], geom))])
     for got, want in zip(qs.sweep(*built), qs.sweep_plain(*built)):
         _same(got, want)
 

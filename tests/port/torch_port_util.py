@@ -46,10 +46,34 @@ def bench_function(name: str):
 
 def port_gates(ja):
     """The port's instances of the JAX assembly's gates."""
-    from boojum_tpu_torch.cs.gates import GATES_BY_NAME, LookupMarkerGate
+    from boojum_tpu_torch.compat import port_gate
 
-    return [LookupMarkerGate.instance(g.principal_width) if g.name == LookupMarkerGate.name
-            else GATES_BY_NAME[g.name].instance() for g in ja.gates]
+    return [port_gate(g) for g in ja.gates]
+
+
+ASSEMBLY_ARRAYS = ("row_gate", "copy_placement", "copy_cols_values", "lookup_placement",
+                   "lookup_cols_values", "lookup_table_id_col", "multiplicities")
+
+
+def assert_same_assembly(ta, ja):
+    """The port's assembly `ta` equals the JAX package's `ja` word for word:
+    rows, gate order, gate constants, public inputs, placement and values of
+    the copy and lookup columns, table ids, multiplicities and, with lookups,
+    the stacked tables."""
+    assert ta.trace_len == ja.trace_len
+    assert [g.name for g in ta.gates] == [g.name for g in ja.gates]
+    assert ta.gate_constants == ja.gate_constants
+    assert ta.public_inputs == [tuple(p) for p in ja.public_inputs]
+    for name in ASSEMBLY_ARRAYS:
+        a, b = getattr(ta, name), getattr(ja, name)
+        if a is None or b is None:
+            assert a is None and b is None, name
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    if ta.lookups_enabled:
+        assert ta.num_lookup_tables == len(ja.lookup_tables)
+        w = ta.lookup_params.width
+        np.testing.assert_array_equal(ta.stacked_table_columns(w), ja.stacked_table_columns(w))
 
 
 def port_geometry(ja):
