@@ -35,6 +35,13 @@ card proves them at 2^20 with `sha256_proof_config()`.
   and UInt gadgets, in a circuit without lookups (ranges by booleans), so
   it fits 2^8 rows for CPU proofs.
 
+- the secp256k1 double-and-add ladder (`build_secp256k1_ladder`), the
+  inner loop of era's ecrecover precompile: non-native secp256k1 field
+  arithmetic over 16-bit limbs at the sha256 geometry and lookups (limb
+  ranges through the 4-bit TriXor4 table); one ladder step a bit of a
+  scalar drawn from a seed, the result in affine coordinates. The JAX
+  package's tests/test_nnf_curves.py circuits at depth.
+
 The fma chain and the xor4 lookup circuit also synthesize over BabyBear
 (`field="babybear"`), as the JAX package's tests/test_bb_full_prover.py
 proves them; sha256 cannot (its u32 words need a field above 2^32).
@@ -53,8 +60,10 @@ from .cs.implementations import ConstraintSystem
 from .cs.lookup_table import LookupTable, range_check_table
 from .cs.types import CSGeometry, LookupParameters
 from .field import gl
-from .gadgets import Boolean, Num, UInt8, UInt16, UInt32, allocate_u8_input, blake2s
-from .gadgets import keccak256, sha256
+from .gadgets import (
+    SECP256K1_BASE, Boolean, NonNativeField, Num, SWProjectivePoint, UInt8, UInt16, UInt32,
+    allocate_u8_input, blake2s, keccak256, sha256,
+)
 from .prover.config import ProofConfig
 
 FMA_GEOMETRY = CSGeometry(
@@ -376,4 +385,103 @@ def build_gate_zoo(log_n: int | None = None, seed: int = 5):
 
 def gate_zoo_proof_config() -> ProofConfig:
     return ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=4, num_queries=8,
+                       pow_bits=0, fri_final_degree=8)
+
+
+# secp256k1: y^2 = x^3 + 7 over p = 2^256 - 2^32 - 977, its generator G
+SECP256K1_B = 7
+SECP256K1_G = (0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798,
+               0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8)
+# the most rows the ladder's fixed part (G checked on the curve, the affine
+# result, the padding) and a step take (tests/port/test_torch_nnf_curves.py)
+LADDER_FIXED_ROWS, LADDER_ROWS_PER_STEP = 600, 1310
+
+
+def secp256k1_ladder_steps(log_n: int) -> int:
+    """Ladder steps that fill 2^log_n rows."""
+    return ((1 << log_n) - LADDER_FIXED_ROWS) // LADDER_ROWS_PER_STEP
+
+
+def port_ladder_namespace():
+    """The classes `secp256k1_ladder` takes, from this package."""
+    return SimpleNamespace(ConstraintSystem=ConstraintSystem, CSGeometry=CSGeometry,
+                           LookupParameters=LookupParameters, Boolean=Boolean,
+                           NonNativeField=NonNativeField, SWProjectivePoint=SWProjectivePoint,
+                           SECP256K1_BASE=SECP256K1_BASE)
+
+
+def ladder_scalar(steps: int, seed: int) -> int:
+    """The scalar of `steps` bits, its top bit set, drawn by numpy seed
+    `seed`."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, steps, dtype=np.int64)
+    return int("".join(str(int(b)) for b in bits), 2) | (1 << (steps - 1))
+
+
+def secp256k1_ladder(m, log_n: int | None = None, seed: int = 17):
+    """[k]G on secp256k1 by double-and-add over the classes of namespace
+    `m` (ConstraintSystem, CSGeometry, LookupParameters, Boolean,
+    NonNativeField, SWProjectivePoint, SECP256K1_BASE under their names;
+    `port_ladder_namespace` gives this package's). G is allocated, checked
+    on the curve, and the ladder starts from the identity; each step, from
+    k's top bit down, takes the bit as a Boolean, doubles, adds G (mixed
+    addition) and selects X, Y and Z on the bit. The result is converted to
+    affine coordinates. At sha256's geometry and lookups; log_n None: two
+    steps, 2^12 rows (the TriXor4 table's 4096), else as many steps as fill
+    2^log_n rows.
+    Returns (cs, SimpleNamespace(x, y, at_infinity, scalar))."""
+    steps = 2 if log_n is None else secp256k1_ladder_steps(log_n)
+    k = ladder_scalar(steps, seed)
+    cs = m.ConstraintSystem(m.CSGeometry(*dataclasses.astuple(SHA256_GEOMETRY)),
+                            1 << (log_n or 12),
+                            lookup_params=m.LookupParameters(*dataclasses.astuple(SHA256_LOOKUP)))
+    params = m.SECP256K1_BASE
+    gx = m.NonNativeField.allocate_checked(cs, SECP256K1_G[0], params)
+    gy = m.NonNativeField.allocate_checked(cs, SECP256K1_G[1], params)
+    m.SWProjectivePoint.from_xy_unchecked(cs, gx, gy, SECP256K1_B).enforce_on_curve(cs)
+    acc = m.SWProjectivePoint.zero(cs, params, SECP256K1_B)
+    for i in reversed(range(steps)):
+        bit = m.Boolean.allocate(cs, bool((k >> i) & 1))
+        doubled = acc.double(cs)
+        added = doubled.add_mixed(cs, gx, gy)
+        acc = m.SWProjectivePoint(
+            *(m.NonNativeField.select(cs, bit, getattr(added, c), getattr(doubled, c))
+              for c in "xyz"), SECP256K1_B)
+    (x, y), at_inf = acc.convert_to_affine_or_default(cs, 0, 0)
+    return cs, SimpleNamespace(x=x, y=y, at_infinity=at_inf, scalar=k)
+
+
+def build_secp256k1_ladder(log_n: int | None = None, seed: int = 17):
+    """The secp256k1 ladder over this package's classes (`secp256k1_ladder`)."""
+    return secp256k1_ladder(port_ladder_namespace(), log_n, seed)
+
+
+def secp256k1_mul_host(k: int):
+    """[k]G in affine coordinates by plain integer arithmetic (None: the
+    identity)."""
+    p = SECP256K1_BASE.modulus
+
+    def add(a, b):
+        if a is None or b is None:
+            return b if a is None else a
+        if a[0] == b[0] and (a[1] + b[1]) % p == 0:
+            return None
+        if a == b:
+            lam = 3 * a[0] * a[0] * pow(2 * a[1], -1, p) % p
+        else:
+            lam = (b[1] - a[1]) * pow(b[0] - a[0], -1, p) % p
+        x = (lam * lam - a[0] - b[0]) % p
+        return x, (lam * (a[0] - x) - a[1]) % p
+
+    out = None
+    for i in reversed(range(k.bit_length())):
+        out = add(out, out)
+        if (k >> i) & 1:
+            out = add(out, SECP256K1_G)
+    return out
+
+
+def secp256k1_ladder_proof_config() -> ProofConfig:
+    """The CPU tests' config of the ladder at 2^12 (LDE 2)."""
+    return ProofConfig(fri_lde_factor=2, merkle_tree_cap_size=4, num_queries=8,
                        pow_bits=0, fri_final_degree=8)

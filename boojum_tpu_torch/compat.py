@@ -28,7 +28,7 @@ from .cs.gates import (
 )
 from .cs.implementations import CSAssembly
 from .cs.types import CSGeometry, LookupParameters
-from .field import gl
+from .field.spec import SPECS
 from .prover.setup import SetupData, commit_setup
 
 
@@ -62,10 +62,13 @@ def _matrix_gate(gate, _lookup_width):
 
 
 def _constants_gate(gate, _lookup_width):
-    fixed = [0, 1, gl.P - 1]
-    if list(gate.constants[:3]) != fixed:
-        raise ValueError(f"gate {gate.name}: its constants do not start with {fixed}")
-    return ExplicitConstantsAllocatorGate(gate.constants[3:]), ("constants",)
+    """The gate's own prime is its third constant plus one (-1 mod p)."""
+    fields = {s.p: name for name, s in SPECS.items()}
+    field = fields.get(int(gate.constants[2]) + 1)
+    if field is None or list(gate.constants[:2]) != [0, 1]:
+        raise ValueError(f"gate {gate.name}: its constants do not start with 0, 1 and "
+                         f"p - 1 for a field's prime p")
+    return ExplicitConstantsAllocatorGate(gate.constants[3:], field), ("constants",)
 
 
 # the JAX class name of each parametrised gate: (its rebuild from the gate

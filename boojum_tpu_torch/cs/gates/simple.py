@@ -14,7 +14,7 @@ its outputs and places the instance, reducing modulo the circuit's field
 
 from __future__ import annotations
 
-from ...field import gl
+from ...field.spec import spec_of
 from .base import Gate
 
 
@@ -466,14 +466,16 @@ class SimpleNonlinearityGate(Gate):
 class MatrixMultiplicationGate(Gate):
     """out = M·in for an N×N matrix that is a parameter of the gate (the
     Poseidon MDS layers): gates of different matrices are different gates,
-    named matmul_<name>."""
+    named matmul_<name>. The entries are reduced modulo the prime of
+    `field`, the circuit's."""
 
     num_constants = 0
     max_degree = 1
 
-    def __init__(self, name: str, matrix):
+    def __init__(self, name: str, matrix, field: str = "goldilocks"):
+        p = spec_of(field).p
         self.name = f"matmul_{name}"
-        self.matrix = [[int(v) % gl.P for v in r] for r in matrix]
+        self.matrix = [[int(v) % p for v in r] for r in matrix]
         self.n = len(self.matrix)
         self.principal_width = 2 * self.n
         self.num_terms = self.n
@@ -502,14 +504,16 @@ class MatrixMultiplicationGate(Gate):
 class ExplicitConstantsAllocatorGate(Gate):
     """Constants as constraints with the values baked into the gate, using
     no constant column: 0, 1 and -1 always, then a set of the caller's; a
-    gate per set, named explicit_constants[<the set>]."""
+    gate per set, named explicit_constants[<the set>]. The values are
+    reduced modulo the prime of `field`, the circuit's."""
 
     witness_width = 0
     num_constants = 0
     max_degree = 1
 
-    def __init__(self, constants_set=()):
-        self.constants = [0, 1, gl.P - 1] + [int(c) % gl.P for c in constants_set]
+    def __init__(self, constants_set=(), field: str = "goldilocks"):
+        p = spec_of(field).p
+        self.constants = [0, 1, p - 1] + [int(c) % p for c in constants_set]
         self.principal_width = self.num_terms = len(self.constants)
         self.name = ("explicit_constants["
                      + ",".join(str(c) for c in self.constants[3:]) + "]")
@@ -525,7 +529,7 @@ class ExplicitConstantsAllocatorGate(Gate):
     def allocate(cs, constants_set=()):
         """Place one instance; returns {value: variable} for 0, 1, p - 1 and
         every value of constants_set."""
-        gate = ExplicitConstantsAllocatorGate(constants_set)
+        gate = ExplicitConstantsAllocatorGate(constants_set, cs.field)
         variables = [cs.alloc_variable_with_value(c) for c in gate.constants]
         cs.place_gate(gate, variables, ())
         return dict(zip(gate.constants, variables))

@@ -280,7 +280,10 @@ def poseidon2_permutation_host(state: list) -> list:
 
 
 class Poseidon2SpongeHost:
-    """Overwrite-mode sponge over python ints (path checks), rate 8."""
+    """Overwrite-mode sponge over python ints (path checks), rate 8; a
+    subclass swaps the permutation."""
+
+    _PERMUTATION = staticmethod(poseidon2_permutation_host)
 
     def __init__(self):
         self.state = [0] * 12
@@ -291,14 +294,14 @@ class Poseidon2SpongeHost:
         while len(self.buffer) >= 8:
             chunk, self.buffer = self.buffer[:8], self.buffer[8:]
             self.state[:8] = chunk
-            self.state = poseidon2_permutation_host(self.state)
+            self.state = self._PERMUTATION(self.state)
 
     def finalize(self, n=4):
         if self.buffer:
             self.state[: len(self.buffer)] = self.buffer
             for i in range(len(self.buffer), 8):
                 self.state[i] = 0
-            self.state = poseidon2_permutation_host(self.state)
+            self.state = self._PERMUTATION(self.state)
             self.buffer = []
         return self.state[:n]
 

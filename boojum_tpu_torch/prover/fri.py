@@ -141,8 +141,9 @@ def fold_once(c0: torch.Tensor, c1: torch.Tensor, ch, inv_x: torch.Tensor):
     return fold_oracle(c0, c1, [ch], inv_x)
 
 
-def fold_schedule(base_degree: int, final_degree: int) -> list[int]:
-    """Per-oracle fold counts: greedy 3s, then the remainder."""
+def fold_schedule(base_degree: int, final_degree: int, explicit=None) -> list[int]:
+    """Per-oracle fold counts: `explicit` where given (it must fold to
+    final_degree), else greedy 3s, then the remainder."""
     num = 0
     deg = base_degree
     while deg > final_degree:
@@ -150,6 +151,11 @@ def fold_schedule(base_degree: int, final_degree: int) -> list[int]:
         num += 1
     if num < 1:
         raise ValueError("nothing to fold; lower fri_final_degree")
+    if explicit is not None:
+        explicit = [int(k) for k in explicit]
+        if sum(explicit) != num or not all(k >= 1 for k in explicit):
+            raise ValueError(f"folding schedule {explicit} must sum to {num}")
+        return explicit
     out = []
     rem = num
     while rem > 3:
@@ -188,7 +194,8 @@ def fri_prove(codeword, transcript, config, base_degree: int, checkpoint) -> Fri
     dev = c0.device
     N = c0.shape[0]
     log_full = N.bit_length() - 1
-    schedule = fold_schedule(base_degree, config.fri_final_degree)
+    schedule = fold_schedule(base_degree, config.fri_final_degree,
+                             config.fri_folding_schedule)
     out.schedule = schedule
     num_folds = sum(schedule)
     tables = fold_entry_tables(log_full, schedule, dev)

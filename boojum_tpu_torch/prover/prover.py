@@ -56,7 +56,7 @@ from ..ntt import (
     monomial_from_values,
     powers_device,
 )
-from ..transcript import BitSource, Poseidon2Transcript
+from ..transcript import BitSource, make_transcript
 from .config import ProofConfig
 from .fri import fri_prove
 from .pow import pow_grind
@@ -189,7 +189,7 @@ def prove(assembly, setup, config: ProofConfig, device="cuda", log=None,
     stream = use_streamed_lde(layout.streamed_columns_estimate(Q, L), N,
                               stream_threshold_bytes)
 
-    t = Poseidon2Transcript()
+    t = make_transcript(setup.vk.transcript)
     t.witness_merkle_tree_cap(setup.vk.setup_merkle_cap)
     checkpoint(0, "setup_cap", setup.vk.setup_merkle_cap)
     pi_values = [v for (_c, _r, v) in assembly.public_inputs]

@@ -14,7 +14,8 @@ table columns (width + 1, lookups only)].
 A BabyBear assembly (`assembly.field == "babybear"`) takes the JAX
 package's _generate_setup_babybear: int32 columns, the 31^col coset
 representatives, the coset-31 LDE and a commit over paired leaves with
-kernel B8; its VK names the poseidon2_babybear transcript.
+kernel B8; its VK names the BabyBear instance of the config's transcript
+(poseidon2_babybear or blake2s_babybear).
 """
 
 from __future__ import annotations
@@ -164,6 +165,7 @@ class VerificationKey:
     num_lookup_tables: int
     quotient_degree: int
     transcript: str = "poseidon2"  # the Fiat-Shamir transcript a proof replays
+    fri_folding_schedule: list | None = None  # None: fri.fold_schedule's greedy one
 
     def to_dict(self) -> dict:
         """The JAX package's VK JSON fields, in its order."""
@@ -185,7 +187,8 @@ class VerificationKey:
             "num_copy_cols": self.num_copy_cols,
             "num_wit_cols": self.num_wit_cols,
             "num_lookup_tables": self.num_lookup_tables,
-            "fri_folding_schedule": None,
+            "fri_folding_schedule": (None if self.fri_folding_schedule is None
+                                     else list(self.fri_folding_schedule)),
             "lookup_params": None if lp is None else {
                 "width": lp.width,
                 "num_repetitions": lp.num_repetitions,
@@ -216,15 +219,20 @@ class SetupData:
     non_residues: list
 
 
-def quotient_degree_for(assembly, tree) -> int:
-    """The quotient coset count: the next power of two of the masked
-    constraint degree."""
+def quotient_degree_for(assembly, tree, explicit: int | None = None) -> int:
+    """The quotient coset count: `explicit` where given (ProofConfig's
+    quotient_degree), else the next power of two of the masked constraint
+    degree. Either must hold the selector tree's degree and the copy
+    permutation's chunks (degree + 1)."""
     tree_degree, tree_constants = tree.compute_stats()
     geom = assembly.geometry
     degree_bound = max(tree_degree, geom.max_allowed_constraint_degree + 1, 1)
     if tree_constants > geom.num_constant_columns:
         raise ValueError("selector tree needs more constant columns")
-    return 1 << (degree_bound - 1).bit_length()
+    q = explicit or 1 << (degree_bound - 1).bit_length()
+    if degree_bound > q:
+        raise ValueError(f"quotient_degree {q} is below the constraint degree {degree_bound}")
+    return q
 
 
 def commit_setup(assembly, config, sigma, consts, selector_paths,
@@ -270,6 +278,8 @@ def commit_setup(assembly, config, sigma, consts, selector_paths,
         lookup_params=assembly.lookup_params if lookups else None,
         num_lookup_tables=assembly.num_lookup_tables,
         quotient_degree=quotient_degree,
+        transcript=config.transcript,
+        fri_folding_schedule=config.fri_folding_schedule,
     )
     return SetupData(
         vk=vk,
@@ -292,7 +302,7 @@ def generate_setup(assembly, config, device="cuda",
     if config.fri_final_degree >= assembly.trace_len:
         raise ValueError("fri_final_degree must be below the trace length")
     tree, selector_paths = build_selector_tree(assembly.gates)
-    q = quotient_degree_for(assembly, tree)
+    q = quotient_degree_for(assembly, tree, config.quotient_degree)
     if getattr(assembly, "field", "goldilocks") == "babybear":
         return _generate_setup_babybear(assembly, config, selector_paths, q, device)
     sigma = compute_sigma_values(
@@ -306,6 +316,18 @@ def generate_setup(assembly, config, device="cuda",
         non_residues_for_copy_permutation(sigma.shape[0]), q, device,
         stream_threshold_bytes,
     )
+
+
+# a Goldilocks transcript kind -> its BabyBear instance
+_BB_TRANSCRIPTS = {"poseidon2": "poseidon2_babybear", "blake2s": "blake2s_babybear"}
+
+
+def _babybear_transcript(kind: str) -> str:
+    """The BabyBear instance of a config's transcript kind."""
+    kind = _BB_TRANSCRIPTS.get(kind, kind)
+    if not kind.endswith("babybear"):
+        raise ValueError(f"transcript {kind} has no BabyBear instance")
+    return kind
 
 
 def _generate_setup_babybear(assembly, config, selector_paths, quotient_degree,
@@ -350,7 +372,8 @@ def _generate_setup_babybear(assembly, config, selector_paths, quotient_degree,
         lookup_params=assembly.lookup_params if assembly.lookups_enabled else None,
         num_lookup_tables=assembly.num_lookup_tables,
         quotient_degree=quotient_degree,
-        transcript="poseidon2_babybear",
+        transcript=_babybear_transcript(config.transcript),
+        fri_folding_schedule=config.fri_folding_schedule,
     )
     return SetupData(
         vk=vk,

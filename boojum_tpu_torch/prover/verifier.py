@@ -14,7 +14,7 @@ from ..cs.gates.base import TermsCollector
 from ..field import extension as ext_f
 from ..field import gl
 from ..merkle import verify_proof_over_cap
-from ..transcript import BitSource, Poseidon2Transcript
+from ..transcript import BitSource, make_transcript
 from .fri import _brev, fold_schedule, fri_verify_queries
 from .layout import OracleLayout
 from .pow import pow_verify
@@ -47,7 +47,7 @@ def _powers_iter(a):
 
 
 def verify(vk, proof, gates) -> bool:
-    if vk.transcript != "poseidon2":
+    if vk.transcript.endswith("babybear"):
         # as in the JAX package: a full BabyBear proof has no verifier, its
         # check is prover_bb.quotient_identity_at_z with the query paths
         raise ValueError(f"verify takes Goldilocks proofs; this key's transcript is "
@@ -80,7 +80,7 @@ def verify(vk, proof, gates) -> bool:
         return False
 
     # ---- transcript replay ------------------------------------------------
-    t = Poseidon2Transcript()
+    t = make_transcript(vk.transcript)
     t.witness_merkle_tree_cap(vk.setup_merkle_cap)
     t.witness_field_elements(proof.public_inputs)
     t.witness_merkle_tree_cap(proof.witness_cap)
@@ -97,7 +97,7 @@ def verify(vk, proof, gates) -> bool:
         t.witness_field_elements(v)
     deep_ch = t.get_ext_challenge()
     try:
-        schedule = fold_schedule(n, vk.fri_final_degree)
+        schedule = fold_schedule(n, vk.fri_final_degree, vk.fri_folding_schedule)
     except ValueError:
         return False
     num_folds = sum(schedule)

@@ -28,9 +28,13 @@ Phases, each printing its seconds:
      from the LDE length) and its whole chain (every entry of the
      schedule, one launch each, at its size); and the forward
      and inverse NTT (B1-B3) at 2^17, 2^21, 2^22 and 2^23, where their pass
-     plans change. The keccak256 2^18 path gives every kernel its shapes;
-     blake2s at 2^18 has the same oracle widths, so only the sweep (B6),
-     whose gate programs differ, is checked again there; and gate_terms_fn
+     plans change. The keccak256 2^18 path gives every kernel its shapes,
+     and so does the secp256k1 ladder at 2^18 (the same oracle widths, its
+     own gate programs in B6); blake2s at 2^17 has those widths too, so
+     only the sweep (B6), whose gate programs differ, is checked again
+     there; B7 also at phase 18's schedule [5, 4, 3] from 2^19 points,
+     whose entries of 5 and 4 rounds split into two launches each (the
+     second reading the first table at a stride); and gate_terms_fn
      at three programs no path runs at once: the byte tri-add, the u32
      fma and a 12×12 matrix gate, each alone over 2^18 rows of sha256's
      columns. The bound of the Goldilocks rows is the busier of the
@@ -39,15 +43,18 @@ Phases, each printing its seconds:
      row's launches_per_call is the wrapper's count over its first call;
      a fold row fails unless that is its schedule's count;
   4. small circuits set up and proved on the card and on the CPU: fma at
-     2^10, the xor4 lookup circuit at 2^9, sha256(b"abc") at 2^14, the
+     2^10 (also under the poseidon, blake2s and keccak256 transcripts), the
+     xor4 lookup circuit at 2^9, sha256(b"abc") at 2^14, the
      general-lookup circuit at 2^9, the witness-column circuit at 2^5 and
      the gate zoo (every gate of cs/gates/simple.py and u32.py) at 2^9,
-     and over BabyBear the fma chain and the xor4 lookup circuit at 2^10.
+     and over BabyBear the fma chain (also under blake2s_babybear) and the
+     xor4 lookup circuit at 2^10.
      The two setup caps of each must be equal, the two proofs the same JSON
      text, and the port's verifier must accept (a BabyBear proof: the
-     quotient identity at z and every query's Merkle paths). The CPU side
-     of sha256 "abc", the slowest, runs in a child process started before
-     phase 3 and is compared last;
+     quotient identity at z and every query's Merkle paths). The CPU sides
+     of the Goldilocks circuits, the slowest part, run in two child
+     processes started before phase 3 (sha256 "abc" in one, the rest in
+     the other);
   5. the bench fma-chain circuit (16 copy columns, 6 constant columns,
      degree 3; LDE 4, cap 16, 50 queries, no PoW, final degree 16)
      synthesized, set up, proved and verified at 2^20 rows. Its commits
@@ -57,9 +64,11 @@ Phases, each printing its seconds:
      on the prove (the absorb only on a streamed prove; the bare
      permutation is on no prove);
   6. where the time of that prove goes: a warm prove (per-round seconds),
-     then one under torch.profiler. Device time is grouped into the port's
-     CUDA kernels (by kernel), the plain PyTorch work around them (by op)
-     and copies; the idle share is 1 - device busy / wall. One JSON line;
+     then one under torch.profiler, tracing the card's activity only (a
+     trace of every host op costs tens of seconds a prove to parse). Device
+     time is grouped into the port's CUDA kernels (by kernel), the plain
+     PyTorch work around them (by kernel) and copies; the idle share is
+     1 - device busy / wall. One JSON line;
   7. the slice: bench.py's headline, sha256 over 8 KiB (60 copy columns,
      8 constant columns, degree 7, width-4 x8 specialized lookups; LDE 8,
      cap 16, 50 queries, no PoW, final degree 16) at 2^16 rows, as phase 5
@@ -97,20 +106,35 @@ Phases, each printing its seconds:
      rows, with sha256's proof config, driven as phase 5 (the prover's rule
      streams its commits at LDE 8, which the phase checks), the digest
      checked against hashes/keccak_host.py, then profiled as phase 6;
- 16. the same for blake2s at 2^18 rows (its additions on the byte tri-add
-     gate), the digest checked against hashlib.
-     Both circuits are synthesized in child processes started before
-     phase 3, each timing its own synthesis, so that their seconds of
-     Python overlap the card's phases.
+ 16. the same for blake2s at 2^17 rows (its additions on the byte tri-add
+     gate), the digest checked against hashlib;
+ 17. the secp256k1 double-and-add ladder (circuits.secp256k1_ladder, the
+     inner loop of era's ecrecover: non-native secp256k1 arithmetic over
+     16-bit limbs at sha256's geometry and lookups) with as many steps as
+     fill 2^18 rows, sha256's proof config, driven as phase 15 (streamed),
+     its affine result checked against [k]G computed on the host, then
+     profiled as phase 6.
+     The three circuits of phases 15-17 are synthesized in child processes
+     started before phase 3, each timing its own synthesis, so that their
+     seconds of Python overlap the card's phases;
+ 18. (run right after phase 8) phase 7's sha256 assembly set up, proved
+     and verified twice more, as phase 5, with the protocol options: the
+     keccak256 transcript with the explicit FRI schedule [5, 4, 3] (entries
+     past the fold kernel's three rounds a launch), and the blake2s
+     transcript with quotient_degree 16 (the sweep over 16 cosets against
+     8 committed); the key must carry the options, B7 launch once per
+     launch its schedule splits into and B6 once per coset.
 
-Prints the nine profile lines, the kernel table as one JSON line, the card
-line, and as the last line
+Every Goldilocks path's prove must launch B6 once per quotient coset and
+B7 once per launch of its schedule. Prints the ten profile lines, the
+kernel table as one JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, if any phase
 fails, if no CUDA device is available, or if the package is missing.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -133,9 +157,17 @@ BB_FMA_PATH = f"babybear fma 2^{LOG_N}"
 BB_XOR_PATH = f"babybear xor4 2^{LOG_N}"
 BB_MINI_PATH = f"babybear mini-STARK 2^{LOG_N}"
 HASH_LOG_N = 18  # keccak256's tables alone take 2^17 rows
+BLAKE_LOG_N = 17  # blake2s at the size of its CPU parity check
 KECCAK_PATH = f"keccak256 2^{HASH_LOG_N}"
-BLAKE_PATH = f"blake2s 2^{HASH_LOG_N}"
+BLAKE_PATH = f"blake2s 2^{BLAKE_LOG_N}"
 GATES_PATH = f"gate_terms_fn alone, 2^{HASH_LOG_N}"
+LADDER_LOG_N = 18
+LADDER_PATH = f"secp256k1 ladder 2^{LADDER_LOG_N}"
+# phase 18: phase 7's sha256 assembly under the protocol options
+SPLIT_SCHEDULE = [5, 4, 3]  # entries past fri.MAX_FOLD_K split into launches
+SPLIT_PATH = f"{SHA_PATH}, keccak256 transcript, schedule {SPLIT_SCHEDULE}"
+Q16_PATH = f"{SHA_PATH}, blake2s transcript, quotient degree 16"
+TRANSCRIPT_KINDS = ("poseidon", "blake2s", "keccak256")  # phase 4's fma 2^10 pairs
 # the NTT (B1-B3) at the sizes where its pass plans change
 NTT_SIZES = (17, 21, 22, 23)
 SIZES_PATH = "NTT sizes 2^17-2^23"
@@ -466,15 +498,15 @@ def kernel_parity(torch, paths, sweep_paths, bb_paths, int_ops_per_s: float) -> 
              4 * (8 * M + 4 * M), f"({M}, 8) -> ({M // 2}, 8)", b8_ops(M // 2, 12 * M)),
         ]
 
-    def fold_cases(n, N, final_degree):
+    def fold_cases(n, N, final_degree, explicit=None):
         """B7's two rows of a path whose LDE has N points: the first oracle
         (the schedule's first entry from N points) and the whole chain
         (every entry, each from the last one's result), with the path's
         entry tables and sub-challenges ch, ch^2, ... of arbitrary
-        challenges. The bytes: each entry's codeword in, result out and
-        first-round table; of the one-round-at-a-time count, every round's
-        table."""
-        schedule = fri.fold_schedule(n, final_degree)
+        challenges; `explicit`: the path's configured schedule. The bytes:
+        each entry's codeword in, result out and first-round table; of the
+        one-round-at-a-time count, every round's table."""
+        schedule = fri.fold_schedule(n, final_degree, explicit)
         tables = fri.fold_entry_tables(N.bit_length() - 1, schedule, dev)
         subs = [fri.sub_challenges((3 + r, 5 + r), k) for r, k in enumerate(schedule)]
         c0, c1 = rand(N), rand(N)
@@ -699,6 +731,11 @@ def kernel_parity(torch, paths, sweep_paths, bb_paths, int_ops_per_s: float) -> 
               for name, kern, plain, nbytes, shape in size_cases()]
     cases += [("quotient_sweep", entry, path, kern, plain, nbytes, shape, None)
               for entry, path, kern, plain, nbytes, shape in entry_cases()]
+    # B7 at phase 18's schedule: its entries of 5 and 4 rounds split into
+    # two launches, the second reading the first table at a stride
+    cases += [(name, None, SPLIT_PATH, kern, plain, nbytes, shape, None)
+              for name, kern, plain, nbytes, shape in fold_cases(
+                  1 << SHA_LOG_N, 8 << SHA_LOG_N, 16, SPLIT_SCHEDULE)]
     cases += [(name, None, path, kern, plain, nbytes, shape, int_ops)
               for path, asm, log_n, cfg in bb_paths
               for name, kern, plain, nbytes, shape, int_ops in bb_cases(asm, log_n,
@@ -792,41 +829,67 @@ def check_proof(label, asm, setup, proof) -> None:
         raise AssertionError(f"{label}: proof rejected by the verifier")
 
 
-# Phase 4's sha256("abc") 2^14 setup and prove on the CPU, the slowest part
-# of the run (all CPU): a child process started before phase 3 runs it and
-# prints the setup cap and the proof JSON.
-CPU_SHA_ABC = """
-import json, os, sys
+# Phase 4's Goldilocks circuits: (label, circuit, transcript kind). Each is
+# set up and proved on the CPU, the slowest part of the run (all CPU), by
+# child processes started before phase 3, which print the setup cap and
+# the proof JSON of each as a line; CPU_PROOF builds the circuits (their
+# proof configs under the transcript named).
+PHASE4_PAIRS = (
+    ("fma 2^10", "fma", "poseidon2"),
+    *((f"fma 2^10, {kind} transcript", "fma", kind) for kind in TRANSCRIPT_KINDS),
+    ("xor4 lookup 2^9", "xor4", "poseidon2"),
+    ("general lookups 2^9", "general", "poseidon2"),
+    ("witness columns 2^5", "witness", "poseidon2"),
+    ("gate zoo 2^9", "gate zoo", "poseidon2"),
+)
+CPU_PROOF = """
+import dataclasses, json, os, sys
 import torch
 # below the parent's phase 3, whose short launches wait on the host
 os.nice(10)
-torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+torch.set_num_threads(int(sys.argv[2]))
 sys.path.insert(0, sys.argv[1])
-from boojum_tpu_torch.circuits import build_sha256, sha256_proof_config
+from boojum_tpu_torch import circuits
 from boojum_tpu_torch.prover import generate_setup, prove
-asm = build_sha256(message=b"abc")[0].into_assembly()
-cfg = sha256_proof_config()
-setup = generate_setup(asm, cfg, device="cpu")
-proof = prove(asm, setup, cfg, device="cpu")
-print(json.dumps({"cap": [list(c) for c in setup.vk.setup_merkle_cap],
-                  "proof": proof.to_json()}))
+CIRCUITS = {
+    "fma": (lambda: circuits.build_fma(10), circuits.fma_proof_config),
+    "xor4": (lambda: circuits.build_xor_lookup()[0], circuits.xor_lookup_proof_config),
+    "general": (lambda: circuits.build_general_lookup()[0], circuits.small_proof_config),
+    "witness": (lambda: circuits.build_zero_check_witness()[0], circuits.small_proof_config),
+    "gate zoo": (lambda: circuits.build_gate_zoo(9)[0], circuits.gate_zoo_proof_config),
+    "sha256 abc": (lambda: circuits.build_sha256(message=b"abc")[0],
+                   circuits.sha256_proof_config),
+}
+for name, kind in zip(sys.argv[3::2], sys.argv[4::2]):
+    build, config = CIRCUITS[name]
+    asm = build().into_assembly()
+    cfg = dataclasses.replace(config(), transcript=kind)
+    setup = generate_setup(asm, cfg, device="cpu")
+    proof = prove(asm, setup, cfg, device="cpu")
+    print(json.dumps({"cap": [list(c) for c in setup.vk.setup_merkle_cap],
+                      "proof": proof.to_json()}), flush=True)
 """
-# Phases 15 and 16's synthesis (pure Python, a minute or more each): a child
+# Phases 15-17's synthesis (pure Python, a minute or more each): a child
 # process started before phase 3 synthesizes the circuit at 2^log_n rows and
-# pickles its assembly, its digest bytes and its own seconds to a file.
-CPU_HASH_SYNTHESIS = """
+# pickles its assembly, its output (a hash's digest bytes; the ladder's
+# affine result, identity flag and scalar) and its own seconds to a file.
+CPU_SYNTHESIS = """
 import os, pickle, sys, time
 os.nice(10)
 sys.path.insert(0, sys.argv[1])
 from boojum_tpu_torch import circuits, gadgets
 which, log_n, out = sys.argv[2], int(sys.argv[3]), sys.argv[4]
 t = time.perf_counter()
-cs, digest = getattr(circuits, "build_" + which)(log_n)
+cs, result = getattr(circuits, "build_" + which)(log_n)
 asm = cs.into_assembly()
 secs = time.perf_counter() - t
+if which == "secp256k1_ladder":
+    output = {"affine": (result.x.get_value(cs), result.y.get_value(cs)),
+              "at_infinity": result.at_infinity.get_value(cs), "scalar": result.scalar}
+else:
+    output = getattr(gadgets, which + "_digest_bytes")(cs, result)
 with open(out, "wb") as f:
-    pickle.dump({"asm": asm, "synthesis_s": secs,
-                 "digest": getattr(gadgets, which + "_digest_bytes")(cs, digest)}, f,
+    pickle.dump({"asm": asm, "synthesis_s": secs, "output": output}, f,
                 protocol=pickle.HIGHEST_PROTOCOL)
 """
 CHILDREN: list = []  # stopped when the script ends
@@ -843,7 +906,7 @@ def start_cpu_child(code: str, *args: str) -> subprocess.Popen:
 
 
 def synthesis_child_result(label: str, proc: subprocess.Popen, path: str) -> dict:
-    """The assembly, digest bytes and synthesis seconds a synthesis child
+    """The assembly, output and synthesis seconds a synthesis child
     pickled, once it ends; the file is removed."""
     import pickle
 
@@ -857,40 +920,40 @@ def synthesis_child_result(label: str, proc: subprocess.Popen, path: str) -> dic
     return res
 
 
-def cpu_child_result(label: str, proc: subprocess.Popen):
-    """(setup cap, proof JSON) printed by a CPU child, once it ends."""
+def cpu_child_results(label: str, proc: subprocess.Popen) -> list:
+    """[(setup cap, proof JSON)] printed by a CPU child, once it ends, one
+    for each circuit it was given."""
     out, err = proc.communicate(timeout=1100)
     if proc.returncode != 0:
         raise AssertionError(f"{label}: the CPU child failed (rc {proc.returncode}):\n"
                              f"{err[-4000:]}")
-    res = json.loads(out.strip().splitlines()[-1])
-    return res["cap"], res["proof"]
+    return [(r["cap"], r["proof"]) for r in map(json.loads, out.strip().splitlines())]
 
 
-def card_against_cpu(torch, label, asm, cfg, cpu_child=None) -> float:
+def card_against_cpu(torch, label, asm, cfg, cpu_side=None) -> float:
     """Set up and prove `asm` on the card and on the CPU: the same setup cap
-    and the same proof JSON text, accepted by the check. With `cpu_child`,
-    the CPU side is that child process's result."""
+    and the same proof JSON text, accepted by the check. With `cpu_side`,
+    the CPU side is the (cap, proof JSON) it returns: a child process's."""
     from boojum_tpu_torch.prover import generate_setup, prove
 
     t = time.perf_counter()
     s_gpu = generate_setup(asm, cfg, device="cuda")
     p_gpu = prove(asm, s_gpu, cfg, device="cuda")
-    if cpu_child is None:
+    if cpu_side is None:
         s_cpu = generate_setup(asm, cfg, device="cpu")
         cap_cpu = s_cpu.vk.setup_merkle_cap
     else:
-        cap_cpu, proof_cpu = cpu_child_result(label, cpu_child)
+        cap_cpu, proof_cpu = cpu_side()
     if [list(c) for c in s_gpu.vk.setup_merkle_cap] != [list(c) for c in cap_cpu]:
         raise AssertionError(f"{label}: setup caps differ between the card and the CPU")
-    if cpu_child is None:
+    if cpu_side is None:
         proof_cpu = prove(asm, s_cpu, cfg, device="cpu").to_json()
     if p_gpu.to_json() != proof_cpu:
         raise AssertionError(f"{label}: proofs differ between the card and the CPU")
     check_proof(label, asm, s_gpu, p_gpu)
     secs = time.perf_counter() - t
     log(f"[4] {label}: card and CPU setups and proofs identical ({len(p_gpu.to_json())} "
-        f"bytes), verified ({secs:.1f} s{', CPU side in a child process' if cpu_child else ''})")
+        f"bytes), verified ({secs:.1f} s{', CPU side in a child process' if cpu_side else ''})")
     return secs
 
 
@@ -960,11 +1023,16 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
     if not streams and launches["poseidon2_absorb"]:
         raise AssertionError(f"{label}: the commits streamed below the threshold")
     if asm.field != "babybear":  # B7: one launch per committed oracle
-        schedule = fri.fold_schedule(asm.trace_len, cfg.fri_final_degree)
+        schedule = fri.fold_schedule(asm.trace_len, cfg.fri_final_degree,
+                                     cfg.fri_folding_schedule)
         folds = sum(-(-k // fri.MAX_FOLD_K) for k in schedule)
         if on_prove["fri_fold"] != folds:
             raise AssertionError(f"{label}: {on_prove['fri_fold']} fold launches on the "
                                  f"prove, not {folds} for the schedule {schedule}")
+        # B6: one launch per quotient coset
+        if on_prove["quotient_sweep"] != setup.vk.quotient_degree:
+            raise AssertionError(f"{label}: {on_prove['quotient_sweep']} sweep launches on "
+                                 f"the prove, not one per coset of {setup.vk.quotient_degree}")
     return dict(asm=asm, setup=setup, launches=launches, launches_on_prove=on_prove,
                 synthesis_s=synth_s, setup_s=setup_s, prove_cold_s=prove_s,
                 rounds_cold_s=timings, verify_s=verify_s, peak_device_memory_gib=peak)
@@ -1094,7 +1162,7 @@ def profile_prove(torch, prove, asm, setup, cfg) -> dict:
     t = time.perf_counter()
     prove(asm, setup, cfg, device="cuda", timings=warm)
     warm_s = time.perf_counter() - t
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         prove(asm, setup, cfg, device="cuda")
         torch.cuda.synchronize()
@@ -1139,9 +1207,9 @@ def main() -> int:
     from boojum_tpu_torch import kernels as K
     from boojum_tpu_torch.circuits import (
         bench_message, blake2s_message_len, build_blake2s, build_fma, build_gate_zoo,
-        build_general_lookup, build_keccak256, build_sha256, build_xor_lookup,
-        build_zero_check_witness, fma_proof_config, gate_zoo_proof_config,
-        keccak256_message_len, sha256_proof_config, small_proof_config,
+        build_general_lookup, build_keccak256, build_secp256k1_ladder, build_sha256,
+        build_xor_lookup, build_zero_check_witness, fma_proof_config, gate_zoo_proof_config,
+        keccak256_message_len, secp256k1_mul_host, sha256_proof_config, small_proof_config,
         xor_lookup_proof_config,
     )
     from boojum_tpu_torch.field.spec import BABYBEAR
@@ -1164,13 +1232,18 @@ def main() -> int:
     log(f"[2] built {', '.join(p.name for p in built.values())} "
         f"({time.perf_counter() - t:.1f} s)")
 
-    sha_abc_child = start_cpu_child(CPU_SHA_ABC)
-    hash_children = {}
+    cores = os.cpu_count() or 2
+    sha_abc_child = start_cpu_child(CPU_PROOF, str(max(1, cores - 4)), "sha256 abc",
+                                    "poseidon2")
+    phase4_child = start_cpu_child(CPU_PROOF, "2", *(a for _label, name, kind in PHASE4_PAIRS
+                                                     for a in (name, kind)))
+    synthesis_children = {}
     TEMP_DIRS.append(tempfile.mkdtemp(prefix="chip_smoke_"))
-    for which in ("keccak256", "blake2s"):
+    for which, log_n in (("keccak256", HASH_LOG_N), ("blake2s", BLAKE_LOG_N),
+                         ("secp256k1_ladder", LADDER_LOG_N)):
         out = os.path.join(TEMP_DIRS[-1], f"{which}.pickle")
-        hash_children[which] = (
-            start_cpu_child(CPU_HASH_SYNTHESIS, which, str(HASH_LOG_N), out), out)
+        synthesis_children[which] = (
+            start_cpu_child(CPU_SYNTHESIS, which, str(log_n), out), out)
     t = time.perf_counter()
     asm10 = build_fma(10).into_assembly()
     cs_abc, digest_abc = build_sha256(message=b"abc")
@@ -1183,16 +1256,19 @@ def main() -> int:
     # the 2^18 paths'
     asm_keccak = build_keccak256()[0].into_assembly()
     asm_blake = build_blake2s()[0].into_assembly()
+    # the ladder's gates and oracle widths at two steps (2^12 rows)
+    asm_ladder = build_secp256k1_ladder()[0].into_assembly()
     log(f"[3] kernels against their plain versions at the {FMA_PATH}, {SHA_PATH}, "
-        f"{GEN_PATH}, {WIT_PATH}, {KECCAK_PATH}, {BLAKE_PATH} (the sweep), {BB_FMA_PATH} "
-        f"and {BB_XOR_PATH} proves' shapes")
+        f"{GEN_PATH}, {WIT_PATH}, {KECCAK_PATH}, {LADDER_PATH}, {BLAKE_PATH} (the sweep), "
+        f"{BB_FMA_PATH} and {BB_XOR_PATH} proves' shapes, and B7 at {SPLIT_PATH}")
     rows = kernel_parity(torch, [
         (FMA_PATH, asm10, LOG_N, fma_proof_config()),
         (SHA_PATH, asm_abc, SHA_LOG_N, sha256_proof_config()),
         (GEN_PATH, asm_gen, LOG_N, sha256_proof_config()),
         (WIT_PATH, asm_wit, LOG_N, sha256_proof_config()),
         (KECCAK_PATH, asm_keccak, HASH_LOG_N, sha256_proof_config()),
-    ], [(BLAKE_PATH, asm_blake, HASH_LOG_N)], [
+        (LADDER_PATH, asm_ladder, LADDER_LOG_N, sha256_proof_config()),
+    ], [(BLAKE_PATH, asm_blake, BLAKE_LOG_N)], [
         (BB_FMA_PATH, asm_bb_fma, LOG_N, fma_proof_config()),
         (BB_XOR_PATH, asm_bb_xor, LOG_N, sha256_proof_config()),
     ], int_ops_per_s)
@@ -1202,25 +1278,31 @@ def main() -> int:
     ntt.clear_tables()
     torch.cuda.empty_cache()
 
-    small = {
-        "fma 2^10": card_against_cpu(torch, "fma 2^10", asm10, fma_proof_config()),
-        "xor4 lookup 2^9": card_against_cpu(
-            torch, "xor4 lookup 2^9", build_xor_lookup()[0].into_assembly(),
-            xor_lookup_proof_config()),
-        "general lookups 2^9": card_against_cpu(
-            torch, "general lookups 2^9", asm_gen, small_proof_config()),
-        "witness columns 2^5": card_against_cpu(
-            torch, "witness columns 2^5", asm_wit, small_proof_config()),
-        "gate zoo 2^9": card_against_cpu(
-            torch, "gate zoo 2^9", build_gate_zoo(9)[0].into_assembly(),
-            gate_zoo_proof_config()),
-    }
-    # the JAX package's tests/test_bb_full_prover.py config
+    # the Goldilocks circuits, their CPU sides from a child process
+    phase4 = {"fma": (asm10, fma_proof_config()),
+              "xor4": (build_xor_lookup()[0].into_assembly(), xor_lookup_proof_config()),
+              "general": (asm_gen, small_proof_config()),
+              "witness": (asm_wit, small_proof_config()),
+              "gate zoo": (build_gate_zoo(9)[0].into_assembly(), gate_zoo_proof_config())}
+    small = {}
+    cpu_sides = cpu_child_results("phase 4", phase4_child)
+    for (label, name, kind), cpu_side in zip(PHASE4_PAIRS, cpu_sides, strict=True):
+        asm, cfg = phase4[name]
+        small[label] = card_against_cpu(torch, label, asm,
+                                        dataclasses.replace(cfg, transcript=kind),
+                                        lambda cpu_side=cpu_side: cpu_side)
+    # the JAX package's tests/test_bb_full_prover.py config, and under the
+    # blake2s transcript (blake2s_babybear)
     bb_small_cfg = ProofConfig(fri_lde_factor=2, num_queries=8, fri_final_degree=8)
-    for label, asm in (("babybear fma 2^10", asm_bb_fma), ("babybear xor4 2^10", asm_bb_xor)):
-        small[label] = card_against_cpu(torch, label, asm, bb_small_cfg)
+    for label, asm, cfg in (
+            ("babybear fma 2^10", asm_bb_fma, bb_small_cfg),
+            ("babybear xor4 2^10", asm_bb_xor, bb_small_cfg),
+            ("babybear fma 2^10, blake2s_babybear transcript", asm_bb_fma,
+             dataclasses.replace(bb_small_cfg, transcript="blake2s"))):
+        small[label] = card_against_cpu(torch, label, asm, cfg)
     small["sha256 abc 2^14"] = card_against_cpu(
-        torch, "sha256 abc 2^14", asm_abc, sha256_proof_config(), sha_abc_child)
+        torch, "sha256 abc 2^14", asm_abc, sha256_proof_config(),
+        lambda: cpu_child_results("sha256 abc 2^14", sha_abc_child)[0])
     if sha256_digest_bytes(cs_abc, digest_abc) != hashlib.sha256(b"abc").digest():
         raise AssertionError("sha256(b'abc') circuit digest is wrong")
 
@@ -1239,15 +1321,17 @@ def main() -> int:
     del fma["asm"], fma["setup"]
 
     message = bench_message(SHA_BYTES)
+    sha_check = None  # the digest check, kept for phase 18
 
     def sha_circuit():
+        nonlocal sha_check
         cs, digest = build_sha256(SHA_BYTES)
 
-        def check(_proof):
+        def sha_check(_proof):
             if sha256_digest_bytes(cs, digest) != hashlib.sha256(message).digest():
                 raise AssertionError("sha256 circuit digest differs from hashlib's")
 
-        return cs.into_assembly(), check
+        return cs.into_assembly(), sha_check
 
     sha = drive_path(torch, SHA_PATH, sha_circuit, sha256_proof_config(), SHA_LOG_N, 7,
                      False)
@@ -1262,9 +1346,30 @@ def main() -> int:
     log(f"[8] warm prove {prof_sha['prove_warm_s']:.3f} s, device busy "
         f"{prof_sha['device_busy_ms']:.1f} ms, idle share "
         f"{prof_sha['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
-    del sha["asm"], sha["setup"]
     profiles = [prof_fma, prof_sha]
     paths = {FMA_PATH: fma["launches"], SHA_PATH: sha["launches"]}
+    # phase 18, run here while phase 7's assembly is at hand: set up and
+    # proved again under the keccak256 transcript with a schedule whose
+    # entries split into launches, and under the blake2s transcript with 16
+    # quotient cosets against 8 committed
+    del sha["setup"]
+    sha_asm = sha.pop("asm")
+    for label, options in (
+            (SPLIT_PATH, dict(transcript="keccak256", fri_folding_schedule=SPLIT_SCHEDULE)),
+            (Q16_PATH, dict(transcript="blake2s", quotient_degree=16))):
+        cfg = dataclasses.replace(sha256_proof_config(), **options)
+        run = drive_path(torch, label, lambda: (sha_asm, sha_check), cfg, SHA_LOG_N, 18,
+                         False)
+        vk = run["setup"].vk
+        if ((vk.transcript, vk.fri_folding_schedule, vk.quotient_degree)
+                != (cfg.transcript, cfg.fri_folding_schedule, cfg.quotient_degree or 8)):
+            raise AssertionError(f"{label}: the key does not carry the options")
+        log(f"[18] {label}: the key carries the options; sweep launches on the prove "
+            f"{run['launches_on_prove']['quotient_sweep']}, fold launches "
+            f"{run['launches_on_prove']['fri_fold']}")
+        del run["asm"], run["setup"]
+        paths[label] = run["launches"]
+    del sha_asm
     # the slice: general-purpose-column lookups and witness columns at 2^20
     for phase, label, build in ((9, GEN_PATH, build_general_lookup),
                                 (10, WIT_PATH, build_zero_check_witness)):
@@ -1338,26 +1443,26 @@ def main() -> int:
     mini = drive_mini_stark(torch, BB_MINI_PATH, LOG_N, 14)
     paths[BB_MINI_PATH] = mini.pop("launches")
     profiles.append(dict(circuit=BB_MINI_PATH, card=card, **mini))
-    # keccak256 and blake2s at 2^18 rows, synthesized by the children
-    # both stream their commits at LDE 8, as phases 5, 9 and 10 do
-    for phase, label, which, message_len, host in (
-            (15, KECCAK_PATH, "keccak256", keccak256_message_len, host_keccak256),
-            (16, BLAKE_PATH, "blake2s", blake2s_message_len,
+    # keccak256 at 2^18 and blake2s at 2^17 rows, synthesized by the
+    # children; both stream their commits at LDE 8, as phases 5, 9 and 10 do
+    for phase, label, which, log_n, message_len, host in (
+            (15, KECCAK_PATH, "keccak256", HASH_LOG_N, keccak256_message_len, host_keccak256),
+            (16, BLAKE_PATH, "blake2s", BLAKE_LOG_N, blake2s_message_len,
              lambda m: hashlib.blake2s(m).digest())):
-        message = bench_message(message_len(HASH_LOG_N))
+        message = bench_message(message_len(log_n))
 
         def circuit(label=label, which=which, host=host, message=message):
-            res = synthesis_child_result(label, *hash_children[which])
+            res = synthesis_child_result(label, *synthesis_children[which])
 
             def check(_proof):
-                if res["digest"] != host(message):
+                if res["output"] != host(message):
                     raise AssertionError(f"{label}: the circuit's digest of {len(message)} "
                                          f"bytes differs from the host's")
 
             return res["asm"], check, res["synthesis_s"]
 
         cfg = sha256_proof_config()
-        run = drive_path(torch, label, circuit, cfg, HASH_LOG_N, phase, True)
+        run = drive_path(torch, label, circuit, cfg, log_n, phase, True)
         t = time.perf_counter()
         prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
         prof.update(circuit=label, message_bytes=len(message), card=card, **{
@@ -1369,6 +1474,36 @@ def main() -> int:
         del run["asm"], run["setup"]
         profiles.append(prof)
         paths[label] = run["launches"]
+
+    # phase 17: the secp256k1 ladder at 2^18 rows, synthesized by a child;
+    # its commits stream at LDE 8 (sha256's geometry, as keccak256's)
+    ladder = {}
+
+    def ladder_circuit():
+        res = synthesis_child_result(LADDER_PATH, *synthesis_children["secp256k1_ladder"])
+        out = res["output"]
+        ladder["steps"] = out["scalar"].bit_length()
+
+        def check(_proof):
+            if out["at_infinity"] or tuple(out["affine"]) != secp256k1_mul_host(out["scalar"]):
+                raise AssertionError(f"{LADDER_PATH}: the circuit's affine result differs "
+                                     f"from the host's [k]G")
+
+        return res["asm"], check, res["synthesis_s"]
+
+    cfg = sha256_proof_config()
+    run = drive_path(torch, LADDER_PATH, ladder_circuit, cfg, LADDER_LOG_N, 17, True)
+    t = time.perf_counter()
+    prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
+    prof.update(circuit=LADDER_PATH, ladder_steps=ladder["steps"], card=card, **{
+        k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s", "rounds_cold_s",
+                            "verify_s", "peak_device_memory_gib", "launches_on_prove")})
+    log(f"[17] {ladder['steps']} ladder steps, [k]G checked; warm prove "
+        f"{prof['prove_warm_s']:.3f} s, device busy {prof['device_busy_ms']:.1f} ms, "
+        f"idle share {prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
+    del run["asm"], run["setup"]
+    profiles.append(prof)
+    paths[LADDER_PATH] = run["launches"]
     for prof in profiles:
         print(json.dumps({"profile": prof}))
 

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""The secp256k1 double-and-add ladder at 2^20 rows, proved by
+boojum_tpu_torch on one card, run as scripts/torch_keccak_20.py runs
+keccak256.
+
+    python3 scripts/torch_secp256k1_20.py
+
+The circuit (circuits.secp256k1_ladder) is the inner loop of era's ecrecover
+precompile: non-native secp256k1 arithmetic over 16-bit limbs at bench.py's
+sha256 geometry (60 copy, 8 constant columns, degree 7, width-4 x8
+specialized lookups: limb ranges through the 4-bit TriXor4 table), one
+ladder step (double, add G, select X, Y and Z on a bit) for each bit of a
+scalar drawn from a seed, as many steps as fill 2^20 rows
+(circuits.secp256k1_ladder_steps: 800), the result in affine coordinates.
+The config is the north star's: LDE 2, cap 32, 100 queries, no PoW, final
+FRI degree 16. It synthesizes once, then proves by the default stream rule
+and with streaming off (threshold math.inf), each with a fresh setup, and
+profiles a warm prove of the default rule as chip_smoke.py's phase 6 does.
+Prints one line per step, the profile as one JSON line, and at the end one
+JSON line: synthesis, setup, cold and warm prove seconds, peak device memory
+of each rule's setup and warm prove, whether the two proofs are identical,
+whether the verifier accepts, and the circuit's result against [k]G
+computed on the host by plain integer arithmetic. Needs one CUDA card;
+exits non-zero without one or if any check fails.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+LOG_N = 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_secp256k1_20: no CUDA device available", file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch.circuits import build_secp256k1_ladder, secp256k1_mul_host
+    from boojum_tpu_torch.prover import ProofConfig, generate_setup, prove, verify
+    from chip_smoke import profile_prove
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    K.build_all()
+    log(f"kernels built ({time.perf_counter() - t0:.1f} s)")
+
+    t = time.perf_counter()
+    cs, out = build_secp256k1_ladder(LOG_N)
+    asm = cs.into_assembly()
+    synthesis_s = time.perf_counter() - t
+    result_ok = (not out.at_infinity.get_value(cs)
+                 and (out.x.get_value(cs), out.y.get_value(cs))
+                 == secp256k1_mul_host(out.scalar))
+    steps = out.scalar.bit_length()
+    log(f"synthesis {synthesis_s:.1f} s, {steps} ladder steps, {asm.trace_len} rows, "
+        f"[k]G equals the host's: {result_ok}")
+    if asm.trace_len != 1 << LOG_N or not result_ok:
+        raise AssertionError("wrong circuit: rows or result")
+    del cs
+    cfg = ProofConfig(fri_lde_factor=2, merkle_tree_cap_size=32, num_queries=100,
+                      pow_bits=0, fri_final_degree=16)
+
+    result = {"card": card, "ladder_steps": steps, "rows": asm.trace_len,
+              "synthesis_s": synthesis_s, "result_matches_host": result_ok}
+    proofs = {}
+    for rule, kw in (("default", {}), ("materialized", {"stream_threshold_bytes": math.inf})):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t = time.perf_counter()
+        setup = generate_setup(asm, cfg, device="cuda", **kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        setup_peak = torch.cuda.max_memory_allocated() / 2**30
+        setup_absorbs = K.LAUNCHES["poseidon2_absorb"]
+        walls = []
+        for _ in range(2):  # cold, then warm
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            rounds = {}
+            t = time.perf_counter()
+            proof = prove(asm, setup, cfg, device="cuda", timings=rounds, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(K.LAUNCHES)
+        t = time.perf_counter()
+        accepted = verify(setup.vk, proof, asm.gates)
+        verify_s = time.perf_counter() - t
+        proofs[rule] = proof.to_json()
+        result[rule] = {
+            "setup_streamed": setup.setup_lde is None, "setup_s": setup_s,
+            "setup_peak_device_memory_gib": setup_peak, "setup_absorb_launches": setup_absorbs,
+            "prove_cold_s": walls[0], "prove_warm_s": walls[1], "rounds_warm_s": rounds,
+            "prove_peak_device_memory_gib": peak, "launches_warm_prove": launches,
+            "verified": accepted, "verify_s": verify_s,
+        }
+        log(f"{rule}: setup {setup_s:.1f} s (streamed: {setup.setup_lde is None}, peak "
+            f"{setup_peak:.2f} GiB), prove cold {walls[0]:.2f} s, warm {walls[1]:.2f} s, "
+            f"peak {peak:.2f} GiB, launches {launches}, verified {accepted} "
+            f"({verify_s:.1f} s)")
+        if not accepted:
+            raise AssertionError(f"{rule}: proof rejected")
+        if rule == "default":
+            t = time.perf_counter()
+            prof = profile_prove(torch, prove, asm, setup, cfg)
+            prof.update(circuit=f"secp256k1 ladder 2^{LOG_N}", card=card)
+            log(f"profile: warm prove {prof['prove_warm_s']:.3f} s, device busy "
+                f"{prof['device_busy_ms']:.1f} ms, idle share "
+                f"{prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
+            print(json.dumps({"profile": prof}))
+        del setup, proof
+    result["proofs_identical"] = proofs["default"] == proofs["materialized"]
+    result["proof_bytes"] = len(proofs["default"])
+    result["total_s"] = time.perf_counter() - t0
+    log(f"proofs identical: {result['proofs_identical']} ({result['proof_bytes']} bytes); "
+        f"total {result['total_s']:.1f} s")
+    print(json.dumps({"secp256k1_20": result}))
+    if not result["proofs_identical"]:
+        raise AssertionError("streamed and materialized proofs differ")
+    if not (result["default"]["setup_streamed"]
+            and result["default"]["launches_warm_prove"]["poseidon2_absorb"]):
+        raise AssertionError("the default rule did not stream at this geometry")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

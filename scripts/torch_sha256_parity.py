@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The JAX prover against boojum_tpu_torch on sha256, blake2s or keccak256
-over a short message, on the CPU, the port with the plain version of every
-kernel.
+over a short message, or on the secp256k1 ladder, on the CPU, the port with
+the plain version of every kernel.
 
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py [--message abc]
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --bench-bytes 8192
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --circuit blake2s
+    JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --circuit secp256k1 --log-n 16
 
 Synthesizes bench.py's sha256 circuit (60 copy columns, 8 constant columns,
 degree 7, width-4 x8 specialized lookups) in both packages, sets it up and
@@ -20,8 +21,11 @@ bench.py does, and the JAX side takes the port's. `--circuit blake2s` or
 `keccak256` proves that hash of the JAX package's tests/test_blake2s.py or
 tests/test_keccak.py at the same geometry, lookups and config, by default
 of those tests' messages ("hello TPU blake2s": 2^17 rows, the xor8
-table's size; "hello TPU keccak": 2^18, the xor8 and and8 tables'). Too
-slow for the tier-1 tests, so it is run by hand.
+table's size; "hello TPU keccak": 2^18, the xor8 and and8 tables').
+`--circuit secp256k1` proves circuits.secp256k1_ladder, one definition over
+each package's classes, with as many ladder steps as fill 2^log_n rows
+(`--log-n`, default 16: 49 steps), at the same geometry, lookups and
+config. Too slow for the tier-1 tests, so it is run by hand.
 """
 
 import argparse
@@ -29,6 +33,7 @@ import json
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import conftest  # noqa: E402,F401  (CPU platform, persistent compile cache)
@@ -45,14 +50,25 @@ from boojum_tpu.prover import verify as jverify  # noqa: E402
 from boojum_tpu.prover.proof import Proof as JProof  # noqa: E402
 from boojum_tpu.utils.report import CheckpointLog as JCheckpointLog  # noqa: E402
 from boojum_tpu.utils.report import install_checkpoint_log  # noqa: E402
+from boojum_tpu.gadgets.boolean import Boolean  # noqa: E402
+from boojum_tpu.gadgets.curves import SWProjectivePoint  # noqa: E402
+from boojum_tpu.gadgets.non_native_field import SECP256K1_BASE, NonNativeField  # noqa: E402
 from boojum_tpu_torch.circuits import (  # noqa: E402
-    bench_message, build_blake2s, build_keccak256, build_sha256, sha256_proof_config,
+    bench_message, build_blake2s, build_keccak256, build_secp256k1_ladder, build_sha256,
+    secp256k1_ladder, sha256_proof_config,
 )
 
 # circuit: (the JAX gadget, the port's build function, the JAX tests' message)
 CIRCUITS = {"sha256": (sha256, build_sha256, "abc"),
             "blake2s": (blake2s, build_blake2s, "hello TPU blake2s"),
-            "keccak256": (keccak256, build_keccak256, "hello TPU keccak")}
+            "keccak256": (keccak256, build_keccak256, "hello TPU keccak"),
+            "secp256k1": (None, None, None)}
+# the JAX package's classes the ladder takes (circuits.secp256k1_ladder)
+JAX_LADDER = SimpleNamespace(ConstraintSystem=ConstraintSystem, CSGeometry=CSGeometry,
+                             LookupParameters=LookupParameters, Boolean=Boolean,
+                             NonNativeField=NonNativeField,
+                             SWProjectivePoint=SWProjectivePoint,
+                             SECP256K1_BASE=SECP256K1_BASE)
 from boojum_tpu_torch.prover import generate_setup, prove, verify  # noqa: E402
 from boojum_tpu_torch.prover.proof import Proof  # noqa: E402
 from boojum_tpu_torch.utils.report import CheckpointLog  # noqa: E402
@@ -65,17 +81,21 @@ def main() -> int:
                     help="the message, as text (default: the circuit's JAX test's)")
     ap.add_argument("--bench-bytes", type=int, default=None,
                     help="bench.py's message of this many bytes, in place of --message")
+    ap.add_argument("--log-n", type=int, default=16,
+                    help="secp256k1: the ladder's rows, log2")
     args = ap.parse_args()
     jhash, build, default_message = CIRCUITS[args.circuit]
-    if args.bench_bytes is None:
-        message = (args.message or default_message).encode()
+    ladder = args.circuit == "secp256k1"
+    if ladder:
+        out = {"circuit": args.circuit, "log_n": args.log_n}
     else:
-        message = bench_message(args.bench_bytes)
-    out = {"circuit": args.circuit, "message_bytes": len(message),
-           "bench_message": args.bench_bytes is not None}
+        message = (bench_message(args.bench_bytes) if args.bench_bytes is not None
+                   else (args.message or default_message).encode())
+        out = {"circuit": args.circuit, "message_bytes": len(message),
+               "bench_message": args.bench_bytes is not None}
 
     t = time.perf_counter()
-    cs, _digest = build(message=message)
+    cs, _output = (build_secp256k1_ladder(args.log_n) if ladder else build(message=message))
     asm = cs.into_assembly()
     cfg = sha256_proof_config()
     setup = generate_setup(asm, cfg, device="cpu")
@@ -86,9 +106,12 @@ def main() -> int:
     print(json.dumps({"port_done": out}), flush=True)
 
     t = time.perf_counter()
-    jcs = ConstraintSystem(CSGeometry(60, 0, 8, 7), cs.max_trace_len,
-                           lookup_params=LookupParameters(width=4, num_repetitions=8))
-    jhash(jcs, allocate_u8_input(jcs, message))
+    if ladder:
+        jcs, _output = secp256k1_ladder(JAX_LADDER, args.log_n)
+    else:
+        jcs = ConstraintSystem(CSGeometry(60, 0, 8, 7), cs.max_trace_len,
+                               lookup_params=LookupParameters(width=4, num_repetitions=8))
+        jhash(jcs, allocate_u8_input(jcs, message))
     jasm = jcs.into_assembly()
     jcfg = ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=16, num_queries=50,
                        pow_bits=0, fri_final_degree=16)

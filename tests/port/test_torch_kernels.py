@@ -1,6 +1,7 @@
 """Each CUDA kernel of boojum_tpu_torch against its plain PyTorch version on
 the card, word for word (tolerance 0), the quotient sweep in every layout
-(the keccak256, blake2s and gate-zoo circuits included) and through its
+(the keccak256, blake2s, gate-zoo and secp256k1-ladder circuits included)
+and through its
 standalone entries (gate_terms_fn at every gate of cs/gates/simple.py and
 cs/gates/u32.py, the 12×12 matrix gate included), and the fma 2^10, xor4
 lookup 2^9, general-lookup 2^9 and witness-column 2^5 proofs identical on
@@ -17,8 +18,8 @@ import torch
 
 from boojum_tpu_torch.circuits import (
     build_blake2s, build_fma, build_gate_zoo, build_general_lookup, build_keccak256,
-    build_sha256, build_xor_lookup, build_zero_check_witness, fma_proof_config,
-    small_proof_config, xor_lookup_proof_config,
+    build_secp256k1_ladder, build_sha256, build_xor_lookup, build_zero_check_witness,
+    fma_proof_config, small_proof_config, xor_lookup_proof_config,
 )
 from boojum_tpu_torch.cs.gates import simple, u32
 from boojum_tpu_torch.cs.types import CSGeometry
@@ -159,6 +160,30 @@ def test_fold_oracle_kernel_matches_plain(dev, k, extra):
         _same(g, w)
 
 
+@pytest.mark.parametrize("schedule", [[4, 1], [5, 4, 3]])
+def test_fold_chain_at_an_explicit_schedule_matches_plain(dev, schedule):
+    """Kernel B7 over a whole FRI chain of an explicit schedule whose entries
+    of 4 and 5 rounds split into two launches, each entry from its first
+    round's table (fold_entry_tables), from 2^(folds + 4) points, against
+    fold_oracle_plain entry by entry."""
+    from boojum_tpu_torch import kernels as K
+
+    log_full = sum(schedule) + 4
+    rng = np.random.default_rng(sum(schedule))
+    tables = fri.fold_entry_tables(log_full, schedule, dev)
+    c0, c1 = _extreme(rng, 1 << log_full, dev), _extreme(rng, 1 << log_full, dev)
+    p0, p1 = c0, c1
+    for r, k in enumerate(schedule):
+        subs = fri.sub_challenges((3 + r, gf.P - 1 - r), k)
+        before = K.LAUNCHES["fri_fold"]
+        c0, c1 = fri.fold_oracle(c0, c1, subs, tables[r])
+        assert K.LAUNCHES["fri_fold"] - before == -(-k // fri.MAX_FOLD_K)
+        p0, p1 = fri.fold_oracle_plain(p0, p1, subs, tables[r])
+        _same(c0, p0)
+        _same(c1, p1)
+    assert c0.shape[0] == 1 << 4
+
+
 @pytest.mark.parametrize("circuit", ["xor4", "sha256"])
 def test_lookup_sweep_kernel_matches_plain(dev, circuit):
     """The sweep with its lookup terms, at the xor4 (width 3, 2 sub-arguments)
@@ -250,14 +275,15 @@ def _sweep_circuit(circuit):
           "witness": lambda: build_zero_check_witness()[0],
           "keccak256": lambda: build_keccak256()[0],
           "blake2s": lambda: build_blake2s()[0],
-          "gate zoo": lambda: build_gate_zoo()[0]}[circuit]()
+          "gate zoo": lambda: build_gate_zoo()[0],
+          "secp256k1 ladder": lambda: build_secp256k1_ladder()[0]}[circuit]()
     return cs.into_assembly()
 
 
 @pytest.mark.parametrize("geometry", _GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
 @pytest.mark.parametrize("fill", ["random", "p-1", "zero", "high"])
 @pytest.mark.parametrize("circuit", ["fma", "sha256", "general", "witness", "keccak256",
-                                     "blake2s", "gate zoo"])
+                                     "blake2s", "gate zoo", "secp256k1 ladder"])
 def test_sweep_kernel_matches_plain_on_extreme_words(dev, monkeypatch, circuit, fill,
                                                      geometry):
     """The whole sweep with every operand and challenge of one kind, in each

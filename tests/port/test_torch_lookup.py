@@ -67,7 +67,8 @@ def port_run():
 
 
 def test_config_is_the_jax_test_config():
-    assert dataclasses.asdict(xor_lookup_proof_config()) == CONFIG
+    assert dataclasses.asdict(xor_lookup_proof_config()) == dataclasses.asdict(
+        JProofConfig(**CONFIG))
 
 
 ARRAYS = ("copy_placement", "copy_cols_values", "lookup_placement",

@@ -55,7 +55,8 @@ def test_geometry_and_config_are_bench_py():
     assert SHA256_LOOKUP.use_specialized_columns
     assert dataclasses.asdict(sha256_proof_config()) == dict(
         fri_lde_factor=8, merkle_tree_cap_size=16, num_queries=50, pow_bits=0,
-        fri_final_degree=16)
+        fri_final_degree=16, fri_folding_schedule=None, quotient_degree=None,
+        transcript="poseidon2")
 
 
 @pytest.mark.parametrize("message", [b"", b"abc", bytes(range(100))],
