@@ -42,9 +42,20 @@ card proves them at 2^20 with `sha256_proof_config()`.
   scalar drawn from a seed, the result in affine coordinates. The JAX
   package's tests/test_nnf_curves.py circuits at depth.
 
-The fma chain and the xor4 lookup circuit also synthesize over BabyBear
-(`field="babybear"`), as the JAX package's tests/test_bb_full_prover.py
-proves them; sha256 cannot (its u32 words need a field above 2^32).
+- the toy Poseidon-style round function of the JAX package's examples.py
+  (`build_poseidon_rf`): a width-3 state, a round an x^7 + c S-box per lane
+  and a circulant MDS, degree 7 at the fma geometry of xor4.
+- the recursion layer (`build_recursion`): Era's verifier circuit, 130
+  copy columns, 8 constant columns, degree 7 (`recursion_geometry`), whose
+  witness is one or more Boojum proofs of one VK, each verified inside the
+  circuit (gadgets/recursion/), the inner public inputs placed as its own.
+  The JAX tests' inner circuit is a Fibonacci chain (`fibonacci`) proved at
+  16 rows with `recursion_inner_config()`; the card's, sha256 over 8 KiB.
+
+The fma chain, the xor4 lookup circuit and the toy round function also
+synthesize over BabyBear (`field="babybear"`), as the JAX package's
+tests/test_bb_full_prover.py proves them; sha256 cannot (its u32 words need
+a field above 2^32).
 """
 
 from __future__ import annotations
@@ -55,7 +66,10 @@ from types import SimpleNamespace
 import numpy as np
 
 from .cs import gates
-from .cs.gates import FmaGate, PublicInputGate, ZeroCheckWitnessGate
+from .cs.gates import (
+    BooleanConstraintGate, FmaGate, MatrixMultiplicationGate, PublicInputGate, SelectionGate,
+    SimpleNonlinearityGate, ZeroCheckWitnessGate,
+)
 from .cs.implementations import ConstraintSystem
 from .cs.lookup_table import LookupTable, range_check_table
 from .cs.types import CSGeometry, LookupParameters
@@ -485,3 +499,176 @@ def secp256k1_ladder_proof_config() -> ProofConfig:
     """The CPU tests' config of the ladder at 2^12 (LDE 2)."""
     return ProofConfig(fri_lde_factor=2, merkle_tree_cap_size=4, num_queries=8,
                        pow_bits=0, fri_final_degree=8)
+
+
+def build_poseidon_rf(num_rounds: int = 48, capacity: int = 1 << 10, seed: int = 11,
+                      field: str = "goldilocks"):
+    """The JAX package's examples.py build_poseidon_rf_circuit: a width-3
+    state (3, 5, 7); a round an S-box y = x^7 + c per lane, c drawn by numpy
+    seed `seed` from [1, 997), then the circulant MDS circ(2, 1, 1); the
+    first lane of the result is the public input. Returns (cs, out_var)."""
+    cs = ConstraintSystem(XOR_GEOMETRY, capacity, field=field)
+    rng = np.random.default_rng(seed)
+    mds = MatrixMultiplicationGate("rf3", [[2, 1, 1], [1, 2, 1], [1, 1, 2]], field)
+    state = [cs.alloc_variable_with_value(v) for v in (3, 5, 7)]
+    for _ in range(num_rounds):
+        sboxed = [SimpleNonlinearityGate.apply(cs, x, int(rng.integers(1, 997)))
+                  for x in state]
+        state = mds.apply(cs, sboxed)
+    PublicInputGate.place(cs, state[0])
+    return cs, state[0]
+
+
+def poseidon_rf_proof_config() -> ProofConfig:
+    """The JAX package's tests/test_bb_full_prover.py config (LDE 2)."""
+    return ProofConfig(fri_lde_factor=2, num_queries=8, fri_final_degree=8)
+
+
+# the JAX tests' tests/test_e2e.py geometry of the Fibonacci chain
+FIBONACCI_GEOMETRY = (8, 0, 6, 4)
+# Era's recursion layer (tests/test_recursion.py): a flattened permutation a row
+RECURSION_GEOMETRY = CSGeometry(
+    num_columns_under_copy_permutation=130,
+    num_witness_columns=0,
+    num_constant_columns=8,
+    max_allowed_constraint_degree=7,
+)
+
+
+def recursion_geometry() -> CSGeometry:
+    return RECURSION_GEOMETRY
+
+
+def port_recursion_namespace():
+    """The classes `fibonacci` and `recursion` take, from this package."""
+    from .gadgets.recursion import recursive_verify
+
+    return SimpleNamespace(ConstraintSystem=ConstraintSystem, CSGeometry=CSGeometry,
+                           BooleanConstraintGate=BooleanConstraintGate, FmaGate=FmaGate,
+                           SelectionGate=SelectionGate, PublicInputGate=PublicInputGate,
+                           recursive_verify=recursive_verify)
+
+
+def fibonacci(m, steps: int = 20):
+    """The JAX tests' tests/test_e2e.py build_fibonacci_circuit over the
+    classes of namespace `m`: x_(i+1) = x_i·x_(i-1) + x_i from (1, 2), a
+    boolean flag selecting the last value, which is the public input.
+    Returns (cs, the selected variable)."""
+    cs = m.ConstraintSystem(m.CSGeometry(*FIBONACCI_GEOMETRY), 1 << 10)
+    a = cs.alloc_variable_with_value(1)
+    b = cs.alloc_variable_with_value(2)
+    flag = cs.alloc_variable_with_value(1)
+    m.BooleanConstraintGate.enforce(cs, flag)
+    for _ in range(steps):
+        a, b = b, m.FmaGate.fma(cs, a, b, a, 1, 1)
+    sel = m.SelectionGate.select(cs, flag, a, b)
+    m.PublicInputGate.place(cs, sel)
+    return cs, sel
+
+
+def recursion_inner_config(transcript: str = "poseidon2") -> ProofConfig:
+    """The JAX tests' config of the inner Fibonacci proof (LDE 8, 8 queries)."""
+    return ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=4, num_queries=8, pow_bits=0,
+                       fri_final_degree=4, transcript=transcript)
+
+
+def recursion(m, inner_vk, inner_proofs, inner_gates, log_n: int | None = None):
+    """The recursion circuit over the classes of namespace `m`
+    (ConstraintSystem, CSGeometry, PublicInputGate, recursive_verify): each
+    of `inner_proofs` (of one key `inner_vk` and gates `inner_gates`)
+    verified in turn, its public inputs placed as the circuit's own, as the
+    JAX package's tests/test_recursion.py places them. Capacity 2^log_n
+    rows (None: 2^16). Returns the constraint system."""
+    cs = recursion_cs(m, log_n)
+    for proof in inner_proofs:
+        verify_into(m, cs, inner_vk, proof, inner_gates)
+    return cs
+
+
+def recursion_cs(m, log_n: int | None = None):
+    """An empty constraint system of the recursion geometry, capacity
+    2^log_n rows (None: 2^16)."""
+    return m.ConstraintSystem(m.CSGeometry(*dataclasses.astuple(RECURSION_GEOMETRY)),
+                              1 << (log_n or 16))
+
+
+def verify_into(m, cs, inner_vk, proof, inner_gates):
+    """One inner proof verified in `cs`, its public inputs placed as the
+    circuit's own."""
+    pi_vars, _cap = m.recursive_verify(cs, inner_vk, proof, inner_gates)
+    for v in pi_vars:
+        m.PublicInputGate.place(cs, v)
+
+
+def build_recursion(inner_vk, inner_proofs, inner_gates, log_n: int | None = None):
+    """The recursion circuit over this package's classes (`recursion`)."""
+    return recursion(port_recursion_namespace(), inner_vk, inner_proofs, inner_gates, log_n)
+
+
+def recursion_inner_count(log_n: int, rows_per_proof: int) -> int:
+    """How many inner proofs of `rows_per_proof` rows each (one proof's
+    verification with its public inputs, constants included, an upper
+    bound for every later one) the recursion circuit takes in 2^log_n
+    rows."""
+    return (1 << log_n) // rows_per_proof
+
+
+def hash_gate_proof_config() -> ProofConfig:
+    """The JAX package's tests/test_poseidon2_gate.py config of a
+    flattened-permutation chain (LDE 8: the gates' quotient degree is 8)."""
+    return ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=4, num_queries=6,
+                       fri_final_degree=8)
+
+
+def recursion_small_proof_config() -> ProofConfig:
+    """The CPU-sized config of the 130-column circuits (the queue, the
+    recursion circuit at 2^10): tests/test_recursion.py's outer config at
+    LDE 2, the quotient at its degree 8."""
+    return ProofConfig(fri_lde_factor=2, merkle_tree_cap_size=8, num_queries=4, pow_bits=0,
+                       fri_final_degree=16)
+
+
+def build_permutation_chain(legacy: bool = False, steps: int = 8):
+    """tests/test_poseidon2_gate.py's chain at the recursion geometry:
+    `steps` flattened permutations (legacy Poseidon with `legacy`) from the
+    state 0..11, the first output lane the public input. Returns (cs, the
+    12 output variables)."""
+    from .gadgets import poseidon2_rf, poseidon_rf
+
+    perm = (poseidon_rf if legacy else poseidon2_rf).circuit_permutation
+    cs = ConstraintSystem(RECURSION_GEOMETRY, 1 << 10)
+    state = [cs.alloc_variable_with_value(i) for i in range(12)]
+    for _ in range(steps):
+        state = perm(cs, state)
+    PublicInputGate.place(cs, state[0])
+    return cs, state
+
+
+def build_queue_roundtrip(items=((1, 2, 3), (4, 5, 6), (7, 8, 9))):
+    """tests/test_queue.py's round trip at the recursion geometry with
+    width-4 ×8 lookups (the length's range checks): the items pushed, popped
+    and the ends tied. Returns (cs, the popped values)."""
+    from .gadgets.queue import CircuitQueue
+
+    cs = ConstraintSystem(RECURSION_GEOMETRY, 1 << 14, lookup_params=SHA256_LOOKUP)
+    q = CircuitQueue(cs, element_width=len(items[0]))
+    for it in items:
+        q.push(cs, [cs.alloc_variable_with_value(v) for v in it])
+    popped = []
+    while q._witness:
+        popped.append([cs.get_value(v) for v in q.pop_front(cs)])
+    q.enforce_consistency(cs)
+    return cs, popped
+
+
+def build_fibonacci_recursion(transcript: str = "poseidon2", device="cuda"):
+    """The recursion circuit over the Fibonacci proof of the JAX tests
+    (`fibonacci`, proved on `device` with `recursion_inner_config`), 2^10
+    rows. Returns (cs, the inner proof)."""
+    from .prover import generate_setup, prove
+
+    cfg = recursion_inner_config(transcript)
+    inner = fibonacci(port_recursion_namespace())[0].into_assembly()
+    setup = generate_setup(inner, cfg, device=device)
+    proof = prove(inner, setup, cfg, device=device)
+    return build_recursion(setup.vk, [proof], inner.gates), proof

@@ -1,4 +1,7 @@
 from .base import Gate, RowView, TermsCollector
+from .ext_fma import ExtFmaGate
+from .poseidon2_flat import Poseidon2FlattenedGate
+from .poseidon_flat import PoseidonFlattenedGate
 from .simple import (
     BooleanConstraintGate,
     BoundedGateWrapper,
@@ -32,4 +35,5 @@ from .u32 import (
 from .u32 import GATES_BY_NAME as _U32
 
 # every gate a name alone identifies (the parametrised ones: compat.port_gate)
-GATES_BY_NAME = {**_SIMPLE, **_U32}
+GATES_BY_NAME = {**_SIMPLE, **_U32, **{g.name: g for g in (
+    ExtFmaGate, Poseidon2FlattenedGate, PoseidonFlattenedGate)}}

@@ -29,12 +29,18 @@
 // - the scalar table carries entries that save products: β·k_i per copy
 //   column (num = w + γ + (β·k_i)·x) and 7·α^t.c1, so an α-weighted GF(p^2)
 //   term is four products with no multiply by the non-residue;
-// - the block copies the program, its constants and the scalar table into
-//   shared memory once; a thread takes R rows, so one decoded op of a gate
-//   program does R independent field operations, on slots kept in shared
-//   memory, slot-major (a warp's accesses are consecutive words, free of
-//   bank conflicts; slots in local memory measured no faster and cost
-//   LDL/STL traffic);
+// - the block copies the constants and the scalar table into shared memory
+//   once, and the program too where it is at most kSmemProgBytes; a longer
+//   program (a 130-column hash gate's, 41-225 KB) is read from global
+//   memory through the read-only cache, every thread of a warp reading the
+//   same word. A thread takes R rows, so one decoded op of a gate program
+//   does R independent field operations, on slots kept in shared memory,
+//   slot-major (a warp's accesses are consecutive words, free of bank
+//   conflicts; slots in local memory measured no faster and cost LDL/STL
+//   traffic);
+// - each term is folded into its gate's sum by an instruction of its own
+//   as soon as its value exists, so finished terms hold no slots (a
+//   Poseidon2 row's 118 terms would otherwise hold 118);
 // - what sets its pace is how many warps hide the latency of the products'
 //   dependent chains: the launch caps registers at 80 (24 warps an SM) with
 //   2 rows a thread where there are gates, at 64 without (looser caps spill
@@ -55,14 +61,17 @@
 // terms, in gate order:
 //   path_len, path bits..., reps, num_slots,
 //   num_instructions, (opcode, dst, a, b)...,
-//   num_terms, term slots...
+//   num_terms
 // with opcodes 0=add 1=sub 2=mul 3=neg 4=double over slots a and b, 5 and 6
 // a load of column a + instance·b of cols or of the constants, 7 the
-// constant kvals[a]. Slots are reused by liveness (quotient_sweep.py
-// schedule_program): a load or a constant comes just before its first use
-// and a result may take a dead operand's slot, so a gate's slots are the
-// most values it holds at once (24 for a 12×12 matrix gate), not its SSA
-// values (480).
+// constant kvals[a] (each distinct constant once), 8 term dst of the
+// instance, slot a times its alpha power added to the gate's sum. Slots
+// are reused by liveness (quotient_sweep.py schedule_program): a load or a
+// constant comes just before its first use, a term is folded just after
+// its value is made and a result may take a dead operand's slot, so a
+// gate's slots are the most values it holds at once (14 for a 12×12
+// matrix gate, 16 and 24 for the flattened Poseidon2 and Poseidon gates),
+// not its SSA values (480; 2,036 and 9,230).
 // Scalar table (uint64): beta (2), gamma (2), the non-residues (Ct), then
 // the alpha powers as c0 (T) and c1 (T); with lookups then beta' (2) and the
 // powers gamma'^0..gamma'^width as (c0, c1) pairs; then the kernel's own
@@ -84,9 +93,13 @@
 namespace {
 
 constexpr int kMaxSlots = 32;
+// a longer program is read from global memory (quotient_sweep.py
+// SMEM_PROG_BYTES)
+constexpr int kSmemProgBytes = 32 * 1024;
 constexpr int kGates = 1, kCopyPermutation = 2, kLookups = 4;
-// instructions past the five ops: loads from cols or constants, a constant
-constexpr int kLoadCols = 5, kLoadConsts = 6, kConst = 7;
+// instructions past the five ops: loads from cols or constants, a constant,
+// a term folded into the gate's sum
+constexpr int kLoadCols = 5, kLoadConsts = 6, kConst = 7, kTerm = 8;
 
 using gl::Ext;
 
@@ -152,8 +165,9 @@ __device__ __forceinline__ uint64_t selector(const int* path, int len,
 // rows), each taking every S-th gate instance, copy-permutation chunk and
 // lookup term, and sub-thread 0 sums their partial terms. A thread's gate
 // slots (slot s of its row k at (s R + k) T + t) live in shared memory. B
-// blocks an SM bound the registers a thread may take.
-template <int R, int T, int S, int B>
+// blocks an SM bound the registers a thread may take. P: the program is
+// copied into shared memory (else read from global memory).
+template <int R, int T, int S, int B, bool P>
 __global__ void __launch_bounds__(T, B)
 sweep(const Operands o, const uint64_t* __restrict__ table_g, const int* __restrict__ prog_g,
       const uint64_t* __restrict__ kvals_g, const Counts c, uint64_t* __restrict__ out0,
@@ -167,11 +181,13 @@ sweep(const Operands o, const uint64_t* __restrict__ table_g, const int* __restr
   uint64_t* kvals = table + c.table_len;
   uint64_t* slot = kvals + c.num_kvals + t;  // this thread's slots
   uint64_t* part = kvals + c.num_kvals + c.num_slots * R * T;  // S > 1: 2 R T words
-  int* prog = reinterpret_cast<int*>(part + (S > 1 ? 2 * R * T : 0));
+  int* prog_s = reinterpret_cast<int*>(part + (S > 1 ? 2 * R * T : 0));
   for (int i = t; i < c.table_len; i += T) table[i] = table_g[i];
   for (int i = t; i < c.num_kvals; i += T) kvals[i] = kvals_g[i];
-  for (int i = t; i < c.prog_len; i += T) prog[i] = prog_g[i];
+  if constexpr (P)
+    for (int i = t; i < c.prog_len; i += T) prog_s[i] = prog_g[i];
   __syncthreads();
+  const int* prog = P ? prog_s : prog_g;
 
   const size_t n = c.n;
   // the thread's rows first + k L; past the end a thread repeats the last
@@ -219,10 +235,10 @@ sweep(const Operands o, const uint64_t* __restrict__ table_g, const int* __restr
     pc += path_len;
     const int reps = prog[pc++];
     pc++;  // num_slots, checked on the host
-    // the body every instance replays: its instructions, then its terms
+    // the body every instance replays: its instructions, then its term count
     const int ins = pc + 1, num_ins = prog[pc];
-    const int terms = ins + 4 * num_ins + 1, num_terms = prog[terms - 1];
-    pc = terms + num_terms;
+    const int num_terms = prog[ins + 4 * num_ins];
+    pc = ins + 4 * num_ins + 1;
     ExtA gacc[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) gacc[k] = ExtA{};
@@ -230,7 +246,18 @@ sweep(const Operands o, const uint64_t* __restrict__ table_g, const int* __restr
       if (S > 1 && inst_no++ % S != sub) continue;
       for (int i = 0; i < num_ins; ++i) {
         const int* od = prog + ins + 4 * i;
-        const int op = od[0], dst = od[1], sa = od[2], sb = od[3];
+        int op, dst, sa, sb;
+        if constexpr (P) {
+          op = od[0], dst = od[1], sa = od[2], sb = od[3];
+        } else {
+          op = __ldg(od), dst = __ldg(od + 1), sa = __ldg(od + 2), sb = __ldg(od + 3);
+        }
+        if (op == kTerm) {  // term dst of this instance, from slot sa
+          const uint64_t w0 = a0[ta + dst], w1 = a1[ta + dst];
+#pragma unroll
+          for (int k = 0; k < R; ++k) mac_base(gacc[k], slot[(sa * R + k) * T], w0, w1);
+          continue;
+        }
         if (op >= kLoadCols) {  // a load or a constant, at its first use
           if (op == kConst) {
             const uint64_t v = kvals[sa];
@@ -275,12 +302,6 @@ sweep(const Operands o, const uint64_t* __restrict__ table_g, const int* __restr
         }
 #pragma unroll
         for (int k = 0; k < R; ++k) slot[(dst * R + k) * T] = x[k];
-      }
-      for (int i = 0; i < num_terms; ++i) {
-        const int s = prog[terms + i];
-        const uint64_t w0 = a0[ta + i], w1 = a1[ta + i];
-#pragma unroll
-        for (int k = 0; k < R; ++k) mac_base(gacc[k], slot[(s * R + k) * T], w0, w1);
       }
     }
 #pragma unroll
@@ -419,20 +440,29 @@ sweep(const Operands o, const uint64_t* __restrict__ table_g, const int* __restr
   }
 }
 
+template <int R, int T, int S, int B, bool P>
+cudaError_t launch_p(const Operands& o, const uint64_t* table, const int* prog,
+                     const uint64_t* kvals, const Counts& c, uint64_t* out0, uint64_t* out1,
+                     cudaStream_t stream) {
+  const size_t smem = size_t(c.table_len + c.num_kvals) * 8 + size_t(c.num_slots) * R * T * 8 +
+                      (S > 1 ? size_t(2) * R * T * 8 : 0) + (P ? size_t(c.prog_len) * 4 : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sweep<R, T, S, B, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const unsigned blocks = unsigned((c.n + R * T / S - 1) / (R * T / S));
+  sweep<R, T, S, B, P><<<blocks, T, smem, stream>>>(o, table, prog, kvals, c, out0, out1);
+  return cudaGetLastError();
+}
+
 template <int R, int T, int S, int B>
 cudaError_t launch(const Operands& o, const uint64_t* table, const int* prog,
                    const uint64_t* kvals, const Counts& c, uint64_t* out0, uint64_t* out1,
                    cudaStream_t stream) {
-  const size_t smem = size_t(c.table_len + c.num_kvals) * 8 + size_t(c.num_slots) * R * T * 8 +
-                      (S > 1 ? size_t(2) * R * T * 8 : 0) + size_t(c.prog_len) * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sweep<R, T, S, B>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const unsigned blocks = unsigned((c.n + R * T / S - 1) / (R * T / S));
-  sweep<R, T, S, B><<<blocks, T, smem, stream>>>(o, table, prog, kvals, c, out0, out1);
-  return cudaGetLastError();
+  if (size_t(c.prog_len) * 4 <= size_t(kSmemProgBytes))
+    return launch_p<R, T, S, B, true>(o, table, prog, kvals, c, out0, out1, stream);
+  return launch_p<R, T, S, B, false>(o, table, prog, kvals, c, out0, out1, stream);
 }
 
 }  // namespace

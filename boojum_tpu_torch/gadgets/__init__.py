@@ -2,7 +2,11 @@
 Boolean, Num and UInt gadgets, the byte ops over the 8-bit tables, the
 keccak256 and blake2s circuits, the wide integers (UInt160/256/512), the
 non-native fields and the short-Weierstrass curves over them, derived
-composite gadgets and the field-like ops over circuit variables."""
+composite gadgets and the field-like ops over circuit variables; in their
+modules, the Poseidon2 and legacy Poseidon sponges over circuit variables
+(poseidon2_rf, poseidon_rf), the committed queues and their sponge
+optimizer (queue, queue_optimizer) and the recursive verifier
+(recursion/)."""
 
 from .blake2s import blake2s, blake2s_digest_bytes
 from .boolean import Boolean

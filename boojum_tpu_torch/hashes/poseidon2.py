@@ -35,50 +35,72 @@ DIAG = [int(v) for v in params.M_I_DIAGONAL]
 # ---------------------------------------------------------------------------
 
 
-def _sbox7(x):
+def _sbox7_rows(x):
     x2 = gf.sqr(x)
-    x3 = gf.mul(x2, x)
-    return gf.mul(gf.sqr(x2), x3)
+    return gf.mul(gf.sqr(x2), gf.mul(x2, x))
 
 
-def _block_m4(x0, x1, x2, x3):
-    """M4 = [[5,7,1,3],[4,6,1,1],[1,3,5,7],[1,1,4,6]] by an add/double chain."""
+def _external_mds_rows(s):
+    """_external_mds over a (12, N) stack: the three M4 blocks at once."""
+    x0, x1, x2, x3 = s.view(3, 4, -1).unbind(1)  # each (3, N): lane i of each block
     t0 = gf.add(x0, x1)
     t1 = gf.add(x2, x3)
     t2 = gf.add(gf.double(x1), t1)
     t3 = gf.add(gf.double(x3), t0)
     t4 = gf.add(gf.double(gf.double(t1)), t3)
     t5 = gf.add(gf.double(gf.double(t0)), t2)
-    return [gf.add(t3, t5), t5, gf.add(t2, t4), t4]
+    blocks = torch.stack([gf.add(t3, t5), t5, gf.add(t2, t4), t4], dim=1)  # (3, 4, N)
+    sums = gf.add(gf.add(blocks[0], blocks[1]), blocks[2])
+    return gf.add(blocks, sums).reshape(12, -1)
+
+
+def _lane_sum(s):
+    """Σ of the 12 rows of a (12, N) stack, by halving."""
+    s = gf.add(s[:6], s[6:])
+    s = gf.add(s[:3], s[3:])
+    return gf.add(gf.add(s[0], s[1]), s[2])
 
 
 def _external_mds(s):
-    blocks = [_block_m4(*s[4 * b : 4 * b + 4]) for b in range(3)]
-    sums = [
-        gf.add(gf.add(blocks[0][i], blocks[1][i]), blocks[2][i])
-        for i in range(4)
-    ]
-    return [gf.add(blocks[b][i], sums[i]) for b in range(3) for i in range(4)]
+    """The external layer over a list of 12 word tensors."""
+    return list(_external_mds_rows(torch.stack(s)).unbind(0))
 
 
 def _internal_mds(s):
-    total = s[0]
-    for v in s[1:]:
-        total = gf.add(total, v)
-    return [gf.add(gf.mul(s[i], DIAG[i]), total) for i in range(12)]
+    """The internal layer over a list of 12 word tensors."""
+    rows = torch.stack(s)
+    diag = _row_tables(rows.device)[1].reshape((12,) + (1,) * (rows.dim() - 1))
+    return list(gf.add(gf.mul(rows, diag), _lane_sum(rows)).unbind(0))
+
+
+_TABLES: dict = {}
+
+
+def _row_tables(device):
+    """The round constants (30, 12, 1) and the diagonal of M_I (12, 1) on a
+    device, made once."""
+    key = str(device)
+    if key not in _TABLES:
+        _TABLES[key] = (gf.from_numpy(np.array(RC, dtype=np.uint64), device)[..., None],
+                        gf.from_numpy(np.array(DIAG, dtype=np.uint64), device)[:, None])
+    return _TABLES[key]
 
 
 def permute_plain(state: list) -> list:
-    """Poseidon2 over 12 same-shape word tensors (one lane per element)."""
-    s = _external_mds(list(state))
+    """Poseidon2 over 12 same-shape word tensors (one lane per element):
+    each round over the (12, N) stack of the lanes at once."""
+    shape = state[0].shape
+    s = torch.stack([v.reshape(-1) for v in state])
+    rc, diag = _row_tables(s.device)
+    s = _external_mds_rows(s)
     for r in range(4):
-        s = _external_mds([_sbox7(gf.add(v, RC[r][i])) for i, v in enumerate(s)])
+        s = _external_mds_rows(_sbox7_rows(gf.add(s, rc[r])))
     for r in range(4, 26):
-        s[0] = _sbox7(gf.add(s[0], RC[r][0]))
-        s = _internal_mds(s)
+        s = torch.cat([_sbox7_rows(gf.add(s[:1], RC[r][0])), s[1:]])
+        s = gf.add(gf.mul(s, diag), _lane_sum(s))
     for r in range(26, 30):
-        s = _external_mds([_sbox7(gf.add(v, RC[r][i])) for i, v in enumerate(s)])
-    return s
+        s = _external_mds_rows(_sbox7_rows(gf.add(s, rc[r])))
+    return [v.reshape(shape) for v in s.unbind(0)]
 
 
 def permutation_plain(state: torch.Tensor) -> torch.Tensor:

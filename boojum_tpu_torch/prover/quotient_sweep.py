@@ -23,7 +23,9 @@ then the copy-permutation terms, then the lookup sub-arguments and B.
 Gates reach the kernel as data: each gate's captured op program
 (cs/gate_capture.py), its slots renumbered by liveness (`schedule_program`),
 is encoded into an int32 table that the kernel and the plain version below
-both interpret, so the CPU tests check the encoding.
+both interpret, so the CPU tests check the encoding. Each term is folded
+into its gate's sum by an instruction of its own as soon as its value
+exists, so a finished term holds no slot.
 The scalar table ends with entries only the kernel reads (β·k_i per copy
 column, 7·α^t.c1), which save it products; `kernel_entries` defines them.
 """
@@ -44,30 +46,46 @@ from ..field import goldilocks as gf
 from .layout import OracleLayout, chunk_columns
 
 MAX_SLOTS = 32  # csrc/quotient_sweep.cu kMaxSlots
+# a program table longer than this is read from global memory through the
+# read-only cache, not copied into shared memory (kSmemProgBytes)
+SMEM_PROG_BYTES = 32 * 1024
+SMEM_BYTES = 227 * 1024  # the most shared memory a Hopper block may take
 GATES, COPY_PERMUTATION, LOOKUPS = 1, 2, 4  # parts of a launch
 ALL_PARTS = GATES | COPY_PERMUTATION | LOOKUPS
 
 
 def chunk_num_den(copy_vals, sigma_vals, non_residues, xs, beta, gamma, chunks):
     """Per chunk of copy columns, the products of num = w + beta·k·x + gamma
-    and den = w + beta·sigma + gamma, each a (num_chunks, n) ext pair."""
-    nums, dens = [], []
-    for chunk in chunks:
-        num_p = den_p = None
-        for col in chunk:
-            w = copy_vals[col]
-            kx = gf.mul(xs, int(non_residues[col]))
-            num = (gf.add(gf.add(w, gf.mul(kx, beta[0])), gamma[0]),
-                   gf.add(gf.mul(kx, beta[1]), gamma[1]))
-            s = sigma_vals[col]
-            den = (gf.add(gf.add(w, gf.mul(s, beta[0])), gamma[0]),
-                   gf.add(gf.mul(s, beta[1]), gamma[1]))
-            num_p = num if num_p is None else ext_f.mul(num_p, num)
-            den_p = den if den_p is None else ext_f.mul(den_p, den)
-        nums.append(num_p)
-        dens.append(den_p)
-    stack = lambda ps, i: torch.stack([p[i] for p in ps])  # noqa: E731
-    return (stack(nums, 0), stack(nums, 1)), (stack(dens, 0), stack(dens, 1))
+    and den = w + beta·sigma + gamma, each a (num_chunks, n) ext pair. The
+    chunks are contiguous runs of columns (layout.chunk_columns); every
+    column's factors are made at once, then multiplied position by position
+    across the chunks."""
+    cols = [c for chunk in chunks for c in chunk]
+    if cols != list(range(len(cols))):
+        raise ValueError("chunks must be contiguous runs of columns from 0")
+    Ct, deg = len(cols), max(len(c) for c in chunks)
+    ks = gf.from_numpy(np.array([int(non_residues[c]) for c in cols], dtype=np.uint64),
+                       xs.device)[:, None]
+    w, sig = copy_vals[:Ct], sigma_vals[:Ct]
+    kx = gf.mul(xs[None], ks)
+    nums = (gf.add(gf.add(w, gf.mul(kx, beta[0])), gamma[0]),
+            gf.add(gf.mul(kx, beta[1]), gamma[1]))
+    dens = (gf.add(gf.add(w, gf.mul(sig, beta[0])), gamma[0]),
+            gf.add(gf.mul(sig, beta[1]), gamma[1]))
+
+    def products(pair):
+        # pad the last chunk with ones to deg columns: (num_chunks, deg, n)
+        pad = len(chunks) * deg - Ct
+        if pad:
+            one = torch.ones((pad,) + tuple(xs.shape), dtype=torch.int64, device=xs.device)
+            pair = (torch.cat([pair[0], one]), torch.cat([pair[1], torch.zeros_like(one)]))
+        c0, c1 = (t.reshape(len(chunks), deg, -1) for t in pair)
+        acc = (c0[:, 0], c1[:, 0])
+        for j in range(1, deg):
+            acc = ext_f.mul(acc, (c0[:, j], c1[:, j]))
+        return acc
+
+    return products(nums), products(dens)
 
 
 def aggregate_lookup_columns(cols, table_id_col, gpow, beta):
@@ -102,31 +120,43 @@ KERNEL_OP = {"add": "add_lazy", "sub": "sub_lazy", "mul": "mul_lazy", "neg": "su
              "double": "add_lazy"}
 # instructions past the ops: a load from the witness oracle's columns or from
 # the constant columns, (op, dst, column, stride); a constant, (op, dst,
-# index into kvals, 0)
-LOAD_COLS, LOAD_CONSTS, CONST = 5, 6, 7
+# index into kvals, 0); a term, (op, term index, slot, 0), which adds
+# slot·α^(the gate's first term + index) to the gate's sum
+LOAD_COLS, LOAD_CONSTS, CONST, TERM = 5, 6, 7, 8
 
 
 def schedule_program(p):
     """A captured program as one stream of instructions over slots reused by
     liveness: each load and constant is placed just before its first use,
+    each term is folded into the gate's sum just after its value is made,
     and a result takes the lowest free slot, which may be an operand's that
     dies at that op. Returns (instructions as (op, dst, a, b) with `a` a
-    load's (kind, index) or a constant's value, term slots, slots used).
-    The ops and their order are the program's, so the values are too."""
+    load's (kind, index) or a constant's value, a term's op ("term", index)
+    with `a` its slot; the slot each term is folded from; slots used). The
+    ops and their order are the program's, so the values are too, and the
+    gate's sum is the same sum in another order."""
     defs = {slot: ("load", kind, idx) for slot, kind, idx in p.loads}
     defs.update({slot: ("const", value) for slot, value in p.consts})
-    stream = []  # (op, dst, operands) over SSA slots
+    terms_of = {}
+    for i, t in enumerate(p.terms):
+        terms_of.setdefault(t, []).append(i)
+    stream = []  # (op, dst, operands) over SSA slots; a term has no dst
     placed = set()
+
+    def made(v):
+        stream.extend((("term", i), None, (v,)) for i in terms_of.get(v, ()))
 
     def place(v):
         if v in defs and v not in placed:
             placed.add(v)
             stream.append((defs[v], v, ()))
+            made(v)
 
     for op, dst, a, b in p.ops:
         place(a)
         place(b)
         stream.append((op, dst, (a,) if op in ("neg", "double") else (a, b)))
+        made(dst)
     for t in p.terms:
         place(t)
     last = {}
@@ -134,15 +164,18 @@ def schedule_program(p):
         last[dst] = i
         for v in args:
             last[v] = i
-    for t in p.terms:
-        last[t] = len(stream)
     free, phys, out, num_slots = [], {}, [], 0
+    term_slots = [None] * len(p.terms)
     for i, (op, dst, args) in enumerate(stream):
         srcs = [phys[v] for v in args]
         for v in dict.fromkeys(args):
             if last[v] == i:
                 free.append(phys[v])
         free.sort()
+        if dst is None:
+            term_slots[op[1]] = srcs[0]
+            out.append((op, None, srcs[0], None))
+            continue
         if free:
             phys[dst] = free.pop(0)
         else:
@@ -154,7 +187,7 @@ def schedule_program(p):
             out.append((op, phys[dst], op[1:], None))
         else:
             out.append((op, phys[dst], *(srcs * 2)[:2]))
-    return out, [phys[t] for t in p.terms], num_slots
+    return out, term_slots, num_slots
 
 
 def encode_gate_programs(gates, selector_paths, geometry, wit_col):
@@ -163,14 +196,15 @@ def encode_gate_programs(gates, selector_paths, geometry, wit_col):
     `kernel_ops` counts them) for every gate with quotient terms, in gate
     order (layout in csrc/quotient_sweep.cu). Each gate's captured program
     is scheduled by `schedule_program`; a gate whose schedule needs more
-    than MAX_SLOTS slots is refused. A load names its block (the witness
+    than MAX_SLOTS slots is refused, by name. Each distinct constant is
+    stored once. A load names its block (the witness
     oracle's columns, the witness columns from `wit_col` on, or the
     constant columns) and its column as base + instance·stride. Every cell
     a program loads lies inside the geometry's copy, witness and constant
     columns, which the kernel relies on."""
     num_consts = geometry.num_constant_columns
     prog = [0]
-    kvals = []
+    kvals = {}  # value: its index
     num_slots = 0
     ops = Counter()
     for gid, gate in enumerate(gates):
@@ -203,19 +237,19 @@ def encode_gate_programs(gates, selector_paths, geometry, wit_col):
                 code, base, stride = where[a[0]]
                 prog += [code, dst, base + a[1], stride]
             elif op[0] == "const":
-                prog += [CONST, dst, len(kvals), 0]
-                kvals.append(a[0])
+                prog += [CONST, dst, kvals.setdefault(a[0], len(kvals)), 0]
+            elif op[0] == "term":
+                prog += [TERM, op[1], a, 0]
             else:
                 prog += [OPCODES[op], dst, a, b]
                 ops[KERNEL_OP[op]] += reps
         prog.append(len(terms))
-        prog += terms
         ops["acc_mac"] += 2 * len(terms) * reps  # Σ term·α^t
         if path:  # the selector, then the reduced sum times it
             ops.update(mul_lazy=len(path), sub=path.count(0), reduce_acc_lazy=2, acc_mac=2)
         else:
             ops["acc_add"] += 2
-    return prog, kvals, num_slots, ops
+    return prog, list(kvals), num_slots, ops
 
 
 def encode_lookup_header(layout: OracleLayout) -> list:
@@ -257,6 +291,7 @@ class SweepPlan:
                 gates, selector_paths, geometry, layout.wit_col)
         self.layout = layout
         self.parts = parts
+        self.gate_names = [g.name for g in gates if g.num_terms] if parts & GATES else []
         self.prog_np = np.array(encode_lookup_header(layout) + gate_prog, dtype=np.int32)
         self.kvals_np = np.array(kvals, dtype=np.uint64)
         self.prog = torch.from_numpy(self.prog_np).to(device)
@@ -412,6 +447,7 @@ def sweep_plain(plan: SweepPlan, ops: Operands, table):
         sel = selector_from_consts(consts, take(path_len))
         reps, _num_slots, num_ins = take(3)
         body = pc
+        num_terms = prog[body + 4 * num_ins]
         gate_acc = (zero, zero)
         for inst in range(reps):
             pc = body
@@ -422,6 +458,10 @@ def sweep_plain(plan: SweepPlan, ops: Operands, table):
                     slots[dst] = (ops.cols if op == LOAD_COLS else consts)[a + inst * b]
                 elif op == CONST:
                     slots[dst] = kvals[a]
+                elif op == TERM:
+                    term = slots[a]
+                    gate_acc = ext_f.add(gate_acc, (gf.mul(term, a0[t + dst]),
+                                                    gf.mul(term, a1[t + dst])))
                 elif op == OPCODES["add"]:
                     slots[dst] = gf.add(slots[a], slots[b])
                 elif op == OPCODES["sub"]:
@@ -432,10 +472,8 @@ def sweep_plain(plan: SweepPlan, ops: Operands, table):
                     slots[dst] = gf.neg(slots[a])
                 else:
                     slots[dst] = gf.double(slots[a])
-            for slot in take(take(1)[0]):
-                term = slots[slot]
-                gate_acc = ext_f.add(gate_acc, (gf.mul(term, a0[t]), gf.mul(term, a1[t])))
-                t += 1
+            t += num_terms
+        pc += 1  # past num_terms
         if sel is not None:
             gate_acc = ext_f.mul_by_base(gate_acc, sel)
         acc = ext_f.add(acc, gate_acc)
@@ -515,6 +553,22 @@ def launch_geometry(n: int, parts: int) -> tuple[int, int, int]:
     return (2, 256, 1) if parts & GATES else (1, 128, 1)
 
 
+def prog_in_shared(plan: SweepPlan) -> bool:
+    """Whether the kernel copies the plan's program table into shared
+    memory (else it reads it from global memory)."""
+    return 4 * len(plan.prog_np) <= SMEM_PROG_BYTES
+
+
+def shared_bytes(plan: SweepPlan, rows_per_thread: int, threads: int, split: int) -> int:
+    """The shared memory a block of the kernel takes (csrc/quotient_sweep.cu
+    launch): the scalar table, the constants, every thread's slots, the
+    sub-threads' partial sums and, if it fits, the program."""
+    r_t = rows_per_thread * threads
+    return (8 * (plan.table_len + len(plan.kvals_np)) + 8 * plan.num_slots * r_t
+            + (16 * r_t if split > 1 else 0)
+            + (4 * len(plan.prog_np) if prog_in_shared(plan) else 0))
+
+
 def sweep(plan: SweepPlan, ops: Operands, table):
     """The terms of one launch: (t0, t1), each (n,) (kernel B6)."""
     K.require(table, "sweep table", (plan.table_len,))
@@ -530,6 +584,10 @@ def sweep(plan: SweepPlan, ops: Operands, table):
     out0 = torch.empty(ops.n, dtype=torch.int64, device=dev)
     out1 = torch.empty(ops.n, dtype=torch.int64, device=dev)
     rows_per_thread, threads, split = launch_geometry(ops.n, plan.parts)
+    smem = shared_bytes(plan, rows_per_thread, threads, split)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"sweep of gates {plan.gate_names}: {smem} bytes of shared memory "
+                         f"a block > {SMEM_BYTES}")
     lib = K.library("quotient_sweep")
     with torch.cuda.device(dev):
         K.count("quotient_sweep")

@@ -37,7 +37,11 @@ Phases, each printing its seconds:
      second reading the first table at a stride); and gate_terms_fn
      at three programs no path runs at once: the byte tri-add, the u32
      fma and a 12×12 matrix gate, each alone over 2^18 rows of sha256's
-     columns. The bound of the Goldilocks rows is the busier of the
+     columns. The recursion circuit of phase 19 gives every kernel its
+     shapes at 2^15 rows (130 witness and 138 setup columns, B6 with the
+     flattened Poseidon2 gate's program, read from global memory), and
+     gate_terms_fn runs the flattened Poseidon2 and legacy Poseidon gates
+     each alone over 2^18 rows of 130 copy and 8 constant columns. The bound of the Goldilocks rows is the busier of the
      FMA and ALU pipes, priced by the SASS of each field operation, for the
      lesser of the plain version's operations and the kernel's own. Each
      row's launches_per_call is the wrapper's count over its first call;
@@ -48,12 +52,19 @@ Phases, each printing its seconds:
      general-lookup circuit at 2^9, the witness-column circuit at 2^5 and
      the gate zoo (every gate of cs/gates/simple.py and u32.py) at 2^9,
      and over BabyBear the fma chain (also under blake2s_babybear) and the
-     xor4 lookup circuit at 2^10.
+     xor4 lookup circuit at 2^10 and the toy round function
+     (circuits.build_poseidon_rf, the JAX tests' 48 rounds) at 2^8; then
+     the 130-column circuits: the Poseidon2 and
+     legacy Poseidon flat chains (8 permutations, 16 rows),
+     tests/test_queue.py's queue round trip (2^12 rows) and the recursion
+     circuit over the Fibonacci proof at 2^10 under the Poseidon2 and the
+     legacy Poseidon transcripts.
      The two setup caps of each must be equal, the two proofs the same JSON
      text, and the port's verifier must accept (a BabyBear proof: the
      quotient identity at z and every query's Merkle paths). The CPU sides
      of the Goldilocks circuits, the slowest part, run in two child
-     processes started before phase 3 (sha256 "abc" in one, the rest in
+     processes started before phase 3 (sha256 "abc", then the 130-column
+     circuits, in one, whose pairs are checked after phase 8; the rest in
      the other);
   5. the bench fma-chain circuit (16 copy columns, 6 constant columns,
      degree 3; LDE 4, cap 16, 50 queries, no PoW, final degree 16)
@@ -65,7 +76,9 @@ Phases, each printing its seconds:
      permutation is on no prove);
   6. where the time of that prove goes: a warm prove (per-round seconds),
      then one under torch.profiler, tracing the card's activity only (a
-     trace of every host op costs tens of seconds a prove to parse). Device
+     trace of every host op costs tens of seconds a prove to parse), read
+     from the tracer's raw device events (its per-op tables cost as much
+     to build). Device
      time is grouped into the port's CUDA kernels (by kernel), the plain
      PyTorch work around them (by kernel) and copies; the idle share is
      1 - device busy / wall. One JSON line;
@@ -123,10 +136,17 @@ Phases, each printing its seconds:
      past the fold kernel's three rounds a launch), and the blake2s
      transcript with quotient_degree 16 (the sweep over 16 cosets against
      8 committed); the key must carry the options, B7 launch once per
-     launch its schedule splits into and B6 once per coset.
+     launch its schedule splits into and B6 once per coset;
+ 19. a proof of a proof: the recursion circuit (Era's recursion layer: 130
+     copy columns, 8 constant columns, degree 7, a flattened Poseidon2
+     permutation a row) verifying phase 7's sha256 proof, synthesized by a
+     child process started right after phase 7 from that proof's VK and
+     proof JSON, driven as phase 5 with sha256's proof config (LDE 8: its
+     gates' quotient degree is 8), its public inputs checked against the
+     inner proof's, then profiled as phase 6.
 
 Every Goldilocks path's prove must launch B6 once per quotient coset and
-B7 once per launch of its schedule. Prints the ten profile lines, the
+B7 once per launch of its schedule. Prints the eleven profile lines, the
 kernel table as one JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, if any phase
 fails, if no CUDA device is available, or if the package is missing.
@@ -163,6 +183,9 @@ BLAKE_PATH = f"blake2s 2^{BLAKE_LOG_N}"
 GATES_PATH = f"gate_terms_fn alone, 2^{HASH_LOG_N}"
 LADDER_LOG_N = 18
 LADDER_PATH = f"secp256k1 ladder 2^{LADDER_LOG_N}"
+REC_LOG_N = 15  # the recursion circuit over one sha256 8 KiB proof fills it
+REC_PATH = f"recursion over {SHA_PATH}, 2^{REC_LOG_N}"
+REC_GATES_PATH = f"gate_terms_fn alone, 130 columns, 2^{HASH_LOG_N}"
 # phase 18: phase 7's sha256 assembly under the protocol options
 SPLIT_SCHEDULE = [5, 4, 3]  # entries past fri.MAX_FOLD_K split into launches
 SPLIT_PATH = f"{SHA_PATH}, keccak256 transcript, schedule {SPLIT_SCHEDULE}"
@@ -425,9 +448,10 @@ def kernel_parity(torch, paths, sweep_paths, bb_paths, int_ops_per_s: float) -> 
     import numpy as np
 
     from boojum_tpu_torch import kernels as K
-    from boojum_tpu_torch.circuits import SHA256_GEOMETRY
+    from boojum_tpu_torch.circuits import RECURSION_GEOMETRY, SHA256_GEOMETRY
     from boojum_tpu_torch.cs.gates import (
-        ByteTriAddGate, MatrixMultiplicationGate, U32FmaGate,
+        ByteTriAddGate, MatrixMultiplicationGate, Poseidon2FlattenedGate, PoseidonFlattenedGate,
+        U32FmaGate,
     )
     from boojum_tpu_torch.field import babybear as bb
     from boojum_tpu_torch.field import goldilocks as gf
@@ -674,16 +698,23 @@ def kernel_parity(torch, paths, sweep_paths, bb_paths, int_ops_per_s: float) -> 
         # (480), each alone over sha256's columns (no selector)
         matrix = [[int(v) for v in row] for row in np.random.default_rng(12).integers(
             0, gf.P, (12, 12), dtype=np.uint64)]
-        for gate, path in ((ByteTriAddGate.instance(), BLAKE_PATH),
-                           (U32FmaGate.instance(), GATES_PATH),
-                           (MatrixMultiplicationGate("mds12", matrix), GATES_PATH)):
-            fn = qs.gate_terms_fn([gate], [[]], SHA256_GEOMETRY, dev)
-            reps = gate.num_repetitions(SHA256_GEOMETRY)
-            slots = qs.encode_gate_programs([gate], [[]], SHA256_GEOMETRY, 60)[2]
+        # and the two flattened permutation gates, each alone over 2^18 rows
+        # of the recursion geometry's 130 copy and 8 constant columns (their
+        # programs read from global memory)
+        for gate, path, geom in (
+                (ByteTriAddGate.instance(), BLAKE_PATH, SHA256_GEOMETRY),
+                (U32FmaGate.instance(), GATES_PATH, SHA256_GEOMETRY),
+                (MatrixMultiplicationGate("mds12", matrix), GATES_PATH, SHA256_GEOMETRY),
+                (Poseidon2FlattenedGate.instance(), REC_GATES_PATH, RECURSION_GEOMETRY),
+                (PoseidonFlattenedGate.instance(), REC_GATES_PATH, RECURSION_GEOMETRY)):
+            fn = qs.gate_terms_fn([gate], [[]], geom, dev)
+            reps = gate.num_repetitions(geom)
+            cg = geom.num_columns_under_copy_permutation
+            slots = qs.encode_gate_programs([gate], [[]], geom, cg)[2]
             cases.append(("gate_terms_fn", path, fn.launch,
-                          (rand(60, nh), None, rand(8, nh), pows(reps * gate.num_terms)),
+                          (rand(cg, nh), None, rand(8, nh), pows(reps * gate.num_terms)),
                           f"2^{HASH_LOG_N} rows: {gate.name} x{reps}, {slots} slots",
-                          gate_rows_read([gate], [[]], SHA256_GEOMETRY, 60)))
+                          gate_rows_read([gate], [[]], geom, cg)))
         out = []
         for entry, path, launch, a, shape, *rows_read in cases:
             plan, ops, table = launch(*a)
@@ -842,6 +873,16 @@ PHASE4_PAIRS = (
     ("witness columns 2^5", "witness", "poseidon2"),
     ("gate zoo 2^9", "gate zoo", "poseidon2"),
 )
+# the 130-column circuits, in the sha256 "abc" child after that circuit,
+# collected after phase 8
+PHASE4_WIDE_PAIRS = (
+    ("poseidon2 flat chain, 16 rows", "poseidon2 chain", "poseidon2"),
+    ("legacy poseidon flat chain, 16 rows", "poseidon chain", "poseidon2"),
+    ("queue round trip 2^12", "queue", "poseidon2"),
+    ("recursion over a fibonacci proof, 2^10", "recursion", "poseidon2"),
+    ("recursion over a poseidon-transcript fibonacci proof, 2^10", "recursion poseidon",
+     "poseidon2"),
+)
 CPU_PROOF = """
 import dataclasses, json, os, sys
 import torch
@@ -859,6 +900,16 @@ CIRCUITS = {
     "gate zoo": (lambda: circuits.build_gate_zoo(9)[0], circuits.gate_zoo_proof_config),
     "sha256 abc": (lambda: circuits.build_sha256(message=b"abc")[0],
                    circuits.sha256_proof_config),
+    "poseidon2 chain": (lambda: circuits.build_permutation_chain()[0],
+                        circuits.hash_gate_proof_config),
+    "poseidon chain": (lambda: circuits.build_permutation_chain(legacy=True)[0],
+                       circuits.hash_gate_proof_config),
+    "queue": (lambda: circuits.build_queue_roundtrip()[0],
+              circuits.recursion_small_proof_config),
+    "recursion": (lambda: circuits.build_fibonacci_recursion("poseidon2", "cpu")[0],
+                  circuits.recursion_small_proof_config),
+    "recursion poseidon": (lambda: circuits.build_fibonacci_recursion("poseidon", "cpu")[0],
+                           circuits.recursion_small_proof_config),
 }
 for name, kind in zip(sys.argv[3::2], sys.argv[4::2]):
     build, config = CIRCUITS[name]
@@ -868,6 +919,27 @@ for name, kind in zip(sys.argv[3::2], sys.argv[4::2]):
     proof = prove(asm, setup, cfg, device="cpu")
     print(json.dumps({"cap": [list(c) for c in setup.vk.setup_merkle_cap],
                       "proof": proof.to_json()}), flush=True)
+"""
+# Phase 19's synthesis: a child process started right after phase 7 reads
+# that proof's VK and proof JSON, synthesizes the recursion circuit over it
+# and pickles the assembly, the inner public inputs and its own seconds.
+RECURSION_SYNTHESIS = """
+import os, pickle, sys, time
+os.nice(10)
+sys.path.insert(0, sys.argv[1])
+from boojum_tpu_torch.circuits import build_recursion
+from boojum_tpu_torch.compat import port_gate
+from boojum_tpu_torch.prover.proof import Proof
+from boojum_tpu_torch.serialization import vk_from_json
+vk_path, proof_path, out = sys.argv[2:5]
+vk = vk_from_json(open(vk_path).read())
+proof = Proof.from_json(open(proof_path).read())
+t = time.perf_counter()
+asm = build_recursion(vk, [proof], [port_gate(name) for name in vk.gate_names]).into_assembly()
+secs = time.perf_counter() - t
+with open(out, "wb") as f:
+    pickle.dump({"asm": asm, "synthesis_s": secs, "output": proof.public_inputs}, f,
+                protocol=pickle.HIGHEST_PROTOCOL)
 """
 # Phases 15-17's synthesis (pure Python, a minute or more each): a child
 # process started before phase 3 synthesizes the circuit at 2^log_n rows and
@@ -920,9 +992,23 @@ def synthesis_child_result(label: str, proc: subprocess.Popen, path: str) -> dic
     return res
 
 
+def cpu_child_lines(label: str, proc: subprocess.Popen, count: int) -> list:
+    """The first `count` (setup cap, proof JSON) lines a CPU child prints, as
+    they come, while it goes on with the rest."""
+    out = []
+    for _ in range(count):
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"{label}: the CPU child stopped (rc {proc.wait()}):\n"
+                                 f"{proc.stderr.read()[-4000:]}")
+        r = json.loads(line)
+        out.append((r["cap"], r["proof"]))
+    return out
+
+
 def cpu_child_results(label: str, proc: subprocess.Popen) -> list:
     """[(setup cap, proof JSON)] printed by a CPU child, once it ends, one
-    for each circuit it was given."""
+    for each circuit it was given (past those read by cpu_child_lines)."""
     out, err = proc.communicate(timeout=1100)
     if proc.returncode != 0:
         raise AssertionError(f"{label}: the CPU child failed (rc {proc.returncode}):\n"
@@ -1033,7 +1119,8 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
         if on_prove["quotient_sweep"] != setup.vk.quotient_degree:
             raise AssertionError(f"{label}: {on_prove['quotient_sweep']} sweep launches on "
                                  f"the prove, not one per coset of {setup.vk.quotient_degree}")
-    return dict(asm=asm, setup=setup, launches=launches, launches_on_prove=on_prove,
+    return dict(asm=asm, setup=setup, proof=proof, launches=launches,
+                launches_on_prove=on_prove,
                 synthesis_s=synth_s, setup_s=setup_s, prove_cold_s=prove_s,
                 rounds_cold_s=timings, verify_s=verify_s, peak_device_memory_gib=peak)
 
@@ -1146,12 +1233,16 @@ def stream_modes(torch, label, asm, setup, cfg) -> dict:
     return out
 
 
-def _device_us(evt) -> float:
-    """Device microseconds of a profiler entry's own work."""
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
+def _device_events(prof):
+    """(name, device microseconds) of each activity the card ran under
+    `prof`: its kernels, copies and sets, read from the tracer's raw events
+    (the profiler's own per-op tables take tens of seconds to build for the
+    launches of one prove)."""
+    from torch.autograd import DeviceType
+
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            yield e.name(), e.duration_ns() / 1e3
 
 
 def profile_prove(torch, prove, asm, setup, cfg) -> dict:
@@ -1168,15 +1259,14 @@ def profile_prove(torch, prove, asm, setup, cfg) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
     kernels, plain, copies = {}, {}, 0.0
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us <= 0 or evt.key.startswith(("aten::", "cuda") + PROFILER_MARKERS):
+    for key, us in _device_events(prof):
+        if us <= 0 or key.startswith(PROFILER_MARKERS):
             continue
-        if evt.key.startswith(("Memcpy", "Memset")):
+        if key.startswith(("Memcpy", "Memset")):
             copies += us / 1e3
             continue
-        port = next((v for k, v in PORT_FUNCTIONS.items() if k in evt.key), None)
-        bucket, name = (kernels, port) if port else (plain, evt.key[:80])
+        port = next((v for k, v in PORT_FUNCTIONS.items() if k in key), None)
+        bucket, name = (kernels, port) if port else (plain, key[:80])
         bucket[name] = bucket.get(name, 0.0) + us / 1e3
     busy_ms = sum(kernels.values()) + sum(plain.values()) + copies
     return {
@@ -1206,12 +1296,15 @@ def main() -> int:
         return 2
     from boojum_tpu_torch import kernels as K
     from boojum_tpu_torch.circuits import (
-        bench_message, blake2s_message_len, build_blake2s, build_fma, build_gate_zoo,
-        build_general_lookup, build_keccak256, build_secp256k1_ladder, build_sha256,
-        build_xor_lookup, build_zero_check_witness, fma_proof_config, gate_zoo_proof_config,
-        keccak256_message_len, secp256k1_mul_host, sha256_proof_config, small_proof_config,
-        xor_lookup_proof_config,
+        bench_message, blake2s_message_len, build_blake2s, build_fibonacci_recursion,
+        build_fma, build_gate_zoo, build_general_lookup, build_keccak256,
+        build_permutation_chain, build_poseidon_rf, build_queue_roundtrip,
+        build_secp256k1_ladder, build_sha256, build_xor_lookup, build_zero_check_witness,
+        fma_proof_config, gate_zoo_proof_config, hash_gate_proof_config, keccak256_message_len,
+        recursion_small_proof_config, secp256k1_mul_host, sha256_proof_config,
+        small_proof_config, xor_lookup_proof_config,
     )
+    from boojum_tpu_torch.serialization import vk_to_json
     from boojum_tpu_torch.field.spec import BABYBEAR
     from boojum_tpu_torch.gadgets import sha256_digest_bytes
     from boojum_tpu_torch.hashes.keccak_host import keccak256 as host_keccak256
@@ -1223,7 +1316,8 @@ def main() -> int:
     max_sm_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int_ops_per_s = sms * INT32_PER_SM_CLOCK * max_sm_mhz * 1e6
-    log(f"[1] card: {card}; {sms} SMs at up to {max_sm_mhz:.0f} MHz: "
+    log(f"[1] card: {card}, torch {torch.__version__} (CUDA {torch.version.cuda}); "
+        f"{sms} SMs at up to {max_sm_mhz:.0f} MHz: "
         f"{int_ops_per_s / 1e12:.2f}e12 32-bit integer ops/s "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1234,7 +1328,8 @@ def main() -> int:
 
     cores = os.cpu_count() or 2
     sha_abc_child = start_cpu_child(CPU_PROOF, str(max(1, cores - 4)), "sha256 abc",
-                                    "poseidon2")
+                                    "poseidon2", *(a for _label, name, kind in PHASE4_WIDE_PAIRS
+                                                   for a in (name, kind)))
     phase4_child = start_cpu_child(CPU_PROOF, "2", *(a for _label, name, kind in PHASE4_PAIRS
                                                      for a in (name, kind)))
     synthesis_children = {}
@@ -1258,8 +1353,12 @@ def main() -> int:
     asm_blake = build_blake2s()[0].into_assembly()
     # the ladder's gates and oracle widths at two steps (2^12 rows)
     asm_ladder = build_secp256k1_ladder()[0].into_assembly()
+    # the recursion circuit's gates and oracle widths, over a Fibonacci proof
+    # (2^10 rows): phase 19's over the sha256 proof, at 2^15
+    asm_rec = build_fibonacci_recursion("poseidon2", "cuda")[0].into_assembly()
     log(f"[3] kernels against their plain versions at the {FMA_PATH}, {SHA_PATH}, "
-        f"{GEN_PATH}, {WIT_PATH}, {KECCAK_PATH}, {LADDER_PATH}, {BLAKE_PATH} (the sweep), "
+        f"{GEN_PATH}, {WIT_PATH}, {KECCAK_PATH}, {LADDER_PATH}, {REC_PATH}, "
+        f"{BLAKE_PATH} (the sweep), "
         f"{BB_FMA_PATH} and {BB_XOR_PATH} proves' shapes, and B7 at {SPLIT_PATH}")
     rows = kernel_parity(torch, [
         (FMA_PATH, asm10, LOG_N, fma_proof_config()),
@@ -1268,6 +1367,7 @@ def main() -> int:
         (WIT_PATH, asm_wit, LOG_N, sha256_proof_config()),
         (KECCAK_PATH, asm_keccak, HASH_LOG_N, sha256_proof_config()),
         (LADDER_PATH, asm_ladder, LADDER_LOG_N, sha256_proof_config()),
+        (REC_PATH, asm_rec, REC_LOG_N, sha256_proof_config()),
     ], [(BLAKE_PATH, asm_blake, BLAKE_LOG_N)], [
         (BB_FMA_PATH, asm_bb_fma, LOG_N, fma_proof_config()),
         (BB_XOR_PATH, asm_bb_xor, LOG_N, sha256_proof_config()),
@@ -1297,14 +1397,11 @@ def main() -> int:
     for label, asm, cfg in (
             ("babybear fma 2^10", asm_bb_fma, bb_small_cfg),
             ("babybear xor4 2^10", asm_bb_xor, bb_small_cfg),
+            ("babybear poseidon rf 2^8", build_poseidon_rf(field="babybear")[0].into_assembly(),
+             bb_small_cfg),
             ("babybear fma 2^10, blake2s_babybear transcript", asm_bb_fma,
              dataclasses.replace(bb_small_cfg, transcript="blake2s"))):
         small[label] = card_against_cpu(torch, label, asm, cfg)
-    small["sha256 abc 2^14"] = card_against_cpu(
-        torch, "sha256 abc 2^14", asm_abc, sha256_proof_config(),
-        lambda: cpu_child_results("sha256 abc 2^14", sha_abc_child)[0])
-    if sha256_digest_bytes(cs_abc, digest_abc) != hashlib.sha256(b"abc").digest():
-        raise AssertionError("sha256(b'abc') circuit digest is wrong")
 
     # each main path: every count goes to 0 before it and is read after verify
     def fma_circuit():
@@ -1335,6 +1432,14 @@ def main() -> int:
 
     sha = drive_path(torch, SHA_PATH, sha_circuit, sha256_proof_config(), SHA_LOG_N, 7,
                      False)
+    # phase 19's synthesis from this proof's VK and proof JSON, in a child
+    inner_proof = sha.pop("proof")
+    rec_files = [os.path.join(TEMP_DIRS[-1], f) for f in ("vk.json", "proof.json",
+                                                          "recursion.pickle")]
+    for path, text in zip(rec_files, (vk_to_json(sha["setup"].vk), inner_proof.to_json())):
+        with open(path, "w") as f:
+            f.write(text)
+    rec_child = start_cpu_child(RECURSION_SYNTHESIS, *rec_files)
     t = time.perf_counter()
     prof_sha = profile_prove(torch, prove, sha["asm"], sha["setup"], sha256_proof_config())
     prof_sha.update(circuit=SHA_PATH, card=card,
@@ -1348,6 +1453,28 @@ def main() -> int:
         f"{prof_sha['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
     profiles = [prof_fma, prof_sha]
     paths = {FMA_PATH: fma["launches"], SHA_PATH: sha["launches"]}
+    # phase 4's sha256 "abc" and 130-column circuits, their CPU sides from
+    # the child started before phase 3, which has run beside phases 3-8
+    small["sha256 abc 2^14"] = card_against_cpu(
+        torch, "sha256 abc 2^14", asm_abc, sha256_proof_config(),
+        lambda: cpu_child_lines("sha256 abc 2^14", sha_abc_child, 1)[0])
+    if sha256_digest_bytes(cs_abc, digest_abc) != hashlib.sha256(b"abc").digest():
+        raise AssertionError("sha256(b'abc') circuit digest is wrong")
+    wide = {"poseidon2 chain": (build_permutation_chain()[0], hash_gate_proof_config()),
+            "poseidon chain": (build_permutation_chain(legacy=True)[0],
+                               hash_gate_proof_config()),
+            "queue": (build_queue_roundtrip()[0], recursion_small_proof_config()),
+            "recursion": (build_fibonacci_recursion("poseidon2")[0],
+                          recursion_small_proof_config()),
+            "recursion poseidon": (build_fibonacci_recursion("poseidon")[0],
+                                   recursion_small_proof_config())}
+    wide_sides = cpu_child_results("phase 4", sha_abc_child)
+    for (label, name, kind), cpu_side in zip(PHASE4_WIDE_PAIRS, wide_sides, strict=True):
+        cs, cfg = wide[name]
+        small[label] = card_against_cpu(torch, label, cs.into_assembly(),
+                                        dataclasses.replace(cfg, transcript=kind),
+                                        lambda cpu_side=cpu_side: cpu_side)
+    del wide
     # phase 18, run here while phase 7's assembly is at hand: set up and
     # proved again under the keccak256 transcript with a schedule whose
     # entries split into launches, and under the blake2s transcript with 16
@@ -1504,6 +1631,35 @@ def main() -> int:
     del run["asm"], run["setup"]
     profiles.append(prof)
     paths[LADDER_PATH] = run["launches"]
+
+    # phase 19: a proof of a proof, the recursion circuit over phase 7's
+    # sha256 proof, synthesized by the child started after phase 7
+    def rec_circuit():
+        res = synthesis_child_result(REC_PATH, rec_child, rec_files[2])
+
+        def check(proof):
+            if proof.public_inputs != res["output"]:
+                raise AssertionError(f"{REC_PATH}: public inputs {proof.public_inputs} "
+                                     f"differ from the inner proof's {res['output']}")
+
+        return res["asm"], check, res["synthesis_s"]
+
+    cfg = sha256_proof_config()
+    run = drive_path(torch, REC_PATH, rec_circuit, cfg, REC_LOG_N, 19, False)
+    t = time.perf_counter()
+    prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
+    prof.update(circuit=REC_PATH, card=card, inner_public_inputs=len(inner_proof.public_inputs),
+                **{k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s",
+                                       "rounds_cold_s", "verify_s", "peak_device_memory_gib",
+                                       "launches_on_prove")})
+    gates = sorted({g.name for g in run["asm"].gates})
+    log(f"[19] sha256 proof verified in a {run['asm'].trace_len}-row circuit (gates {gates}), "
+        f"public inputs checked; warm prove {prof['prove_warm_s']:.3f} s, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle share {prof['device_idle_share']:.3f} "
+        f"({time.perf_counter() - t:.1f} s)")
+    del run["asm"], run["setup"]
+    profiles.append(prof)
+    paths[REC_PATH] = run["launches"]
     for prof in profiles:
         print(json.dumps({"profile": prof}))
 

@@ -7,6 +7,7 @@ the plain version of every kernel.
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --bench-bytes 8192
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --circuit blake2s
     JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --circuit secp256k1 --log-n 16
+    JAX_PLATFORMS=cpu python scripts/torch_sha256_parity.py --circuit recursion [--transcript poseidon]
 
 Synthesizes bench.py's sha256 circuit (60 copy columns, 8 constant columns,
 degree 7, width-4 x8 specialized lookups) in both packages, sets it up and
@@ -25,7 +26,14 @@ table's size; "hello TPU keccak": 2^18, the xor8 and and8 tables').
 `--circuit secp256k1` proves circuits.secp256k1_ladder, one definition over
 each package's classes, with as many ladder steps as fill 2^log_n rows
 (`--log-n`, default 16: 49 steps), at the same geometry, lookups and
-config. Too slow for the tier-1 tests, so it is run by hand.
+config. `--circuit recursion` proves circuits.recursion over the JAX tests'
+Fibonacci proof (circuits.fibonacci, proved by the port with
+`recursion_inner_config` under `--transcript`, poseidon2 or the legacy
+poseidon, and carried to the JAX classes by its VK and proof JSON), one
+definition over each package's classes: 2^10 rows of the recursion
+geometry, proved with tests/test_recursion.py's outer config (LDE 8, cap
+8, 4 queries, no PoW, final degree 16). Too slow for the tier-1 tests, so
+it is run by hand.
 """
 
 import argparse
@@ -53,22 +61,41 @@ from boojum_tpu.utils.report import install_checkpoint_log  # noqa: E402
 from boojum_tpu.gadgets.boolean import Boolean  # noqa: E402
 from boojum_tpu.gadgets.curves import SWProjectivePoint  # noqa: E402
 from boojum_tpu.gadgets.non_native_field import SECP256K1_BASE, NonNativeField  # noqa: E402
+from boojum_tpu import serialization as jserialization  # noqa: E402
+from boojum_tpu.cs.gates import (  # noqa: E402
+    BooleanConstraintGate, FmaGate, PublicInputGate, SelectionGate,
+)
+from boojum_tpu.gadgets.recursion import recursive_verify  # noqa: E402
 from boojum_tpu_torch.circuits import (  # noqa: E402
-    bench_message, build_blake2s, build_keccak256, build_secp256k1_ladder, build_sha256,
+    bench_message, build_blake2s, build_keccak256, build_recursion, build_secp256k1_ladder,
+    build_sha256, fibonacci, port_recursion_namespace, recursion, recursion_inner_config,
     secp256k1_ladder, sha256_proof_config,
 )
+from boojum_tpu_torch.prover import ProofConfig as PortProofConfig  # noqa: E402
+from boojum_tpu_torch.serialization import vk_to_json  # noqa: E402
 
 # circuit: (the JAX gadget, the port's build function, the JAX tests' message)
 CIRCUITS = {"sha256": (sha256, build_sha256, "abc"),
             "blake2s": (blake2s, build_blake2s, "hello TPU blake2s"),
             "keccak256": (keccak256, build_keccak256, "hello TPU keccak"),
-            "secp256k1": (None, None, None)}
+            "secp256k1": (None, None, None), "recursion": (None, None, None)}
 # the JAX package's classes the ladder takes (circuits.secp256k1_ladder)
 JAX_LADDER = SimpleNamespace(ConstraintSystem=ConstraintSystem, CSGeometry=CSGeometry,
                              LookupParameters=LookupParameters, Boolean=Boolean,
                              NonNativeField=NonNativeField,
                              SWProjectivePoint=SWProjectivePoint,
                              SECP256K1_BASE=SECP256K1_BASE)
+# the JAX package's classes circuits.fibonacci and circuits.recursion take
+JAX_RECURSION = SimpleNamespace(ConstraintSystem=ConstraintSystem, CSGeometry=CSGeometry,
+                                BooleanConstraintGate=BooleanConstraintGate,
+                                FmaGate=FmaGate, SelectionGate=SelectionGate,
+                                PublicInputGate=PublicInputGate,
+                                recursive_verify=recursive_verify)
+# tests/test_recursion.py's outer config; bench.py's for the rest
+RECURSION_CONFIG = dict(fri_lde_factor=8, merkle_tree_cap_size=8, num_queries=4, pow_bits=0,
+                        fri_final_degree=16)
+BENCH_CONFIG = dict(fri_lde_factor=8, merkle_tree_cap_size=16, num_queries=50, pow_bits=0,
+                    fri_final_degree=16)
 from boojum_tpu_torch.prover import generate_setup, prove, verify  # noqa: E402
 from boojum_tpu_torch.prover.proof import Proof  # noqa: E402
 from boojum_tpu_torch.utils.report import CheckpointLog  # noqa: E402
@@ -83,11 +110,17 @@ def main() -> int:
                     help="bench.py's message of this many bytes, in place of --message")
     ap.add_argument("--log-n", type=int, default=16,
                     help="secp256k1: the ladder's rows, log2")
+    ap.add_argument("--transcript", choices=["poseidon2", "poseidon"], default="poseidon2",
+                    help="recursion: the inner proof's transcript")
     args = ap.parse_args()
     jhash, build, default_message = CIRCUITS[args.circuit]
     ladder = args.circuit == "secp256k1"
+    rec = args.circuit == "recursion"
+    config = RECURSION_CONFIG if rec else BENCH_CONFIG
     if ladder:
         out = {"circuit": args.circuit, "log_n": args.log_n}
+    elif rec:
+        out = {"circuit": args.circuit, "inner_transcript": args.transcript}
     else:
         message = (bench_message(args.bench_bytes) if args.bench_bytes is not None
                    else (args.message or default_message).encode())
@@ -95,9 +128,17 @@ def main() -> int:
                "bench_message": args.bench_bytes is not None}
 
     t = time.perf_counter()
-    cs, _output = (build_secp256k1_ladder(args.log_n) if ladder else build(message=message))
+    if rec:
+        inner_cfg = recursion_inner_config(args.transcript)
+        inner = fibonacci(port_recursion_namespace())[0].into_assembly()
+        inner_setup = generate_setup(inner, inner_cfg, device="cpu")
+        inner_proof = prove(inner, inner_setup, inner_cfg, device="cpu")
+        cs = build_recursion(inner_setup.vk, [inner_proof], inner.gates)
+    else:
+        cs, _output = (build_secp256k1_ladder(args.log_n) if ladder else build(message=message))
     asm = cs.into_assembly()
-    cfg = sha256_proof_config()
+    cfg = PortProofConfig(**config)
+    assert rec or cfg == sha256_proof_config()
     setup = generate_setup(asm, cfg, device="cpu")
     log = CheckpointLog()
     proof = prove(asm, setup, cfg, device="cpu", log=log)
@@ -108,13 +149,16 @@ def main() -> int:
     t = time.perf_counter()
     if ladder:
         jcs, _output = secp256k1_ladder(JAX_LADDER, args.log_n)
+    elif rec:
+        jinner = fibonacci(JAX_RECURSION)[0].into_assembly()
+        jcs = recursion(JAX_RECURSION, jserialization.vk_from_json(vk_to_json(inner_setup.vk)),
+                        [JProof.from_json(inner_proof.to_json())], jinner.gates)
     else:
         jcs = ConstraintSystem(CSGeometry(60, 0, 8, 7), cs.max_trace_len,
                                lookup_params=LookupParameters(width=4, num_repetitions=8))
         jhash(jcs, allocate_u8_input(jcs, message))
     jasm = jcs.into_assembly()
-    jcfg = ProofConfig(fri_lde_factor=8, merkle_tree_cap_size=16, num_queries=50,
-                       pow_bits=0, fri_final_degree=16)
+    jcfg = ProofConfig(**config)
     jsetup = jgenerate_setup(jasm, jcfg)
     jlog = JCheckpointLog()
     prev = install_checkpoint_log(jlog)

@@ -142,24 +142,30 @@ def test_encoding_fits_32_slots(name):
     ins, terms, live = qs.schedule_program(p)
     assert slots == live <= qs.MAX_SLOTS
     assert len(terms) == tg.num_terms
-    # the schedule runs every op of the program once, and each load and
-    # constant at most once
+    # the schedule runs every op of the program once, each load and
+    # constant at most once, and folds each term once
     assert sum(1 for op, *_ in ins if isinstance(op, str)) == len(p.ops)
-    assert sum(1 for op, *_ in ins if not isinstance(op, str)) <= len(p.loads) + len(p.consts)
+    assert (sum(1 for op, *_ in ins if op[0] in ("load", "const"))
+            <= len(p.loads) + len(p.consts))
+    assert sorted(op[1] for op, *_ in ins if op[0] == "term") == list(range(tg.num_terms))
 
 
 def test_matrix12_needs_24_slots_not_480():
+    """Its 12 inputs, a product and a partial sum: 14 slots, now that each
+    finished term is folded at once (24 while the 12 terms waited for the
+    program's end)."""
     p = capture_gate_program(PAIRS["MatrixMultiplicationGate12"][1])
     assert p.num_slots == 480
-    assert qs.schedule_program(p)[2] == 24
+    assert qs.schedule_program(p)[2] == 14
 
 
 def test_encoding_refuses_a_gate_past_32_live_slots():
-    """A 17×17 matrix gate holds its 17 inputs and 16 finished terms at once."""
-    gate = tsimple.MatrixMultiplicationGate("m17", [[1 + i + j for j in range(17)]
-                                                    for i in range(17)])
-    with pytest.raises(ValueError, match=r"slots > 32"):
-        qs.encode_gate_programs([gate], [[]], CSGeometry(34, 0, 6, 8), 34)
+    """A 31×31 matrix gate holds its 31 inputs, a product and a partial sum
+    at once: 33 slots, refused with the gate's name."""
+    gate = tsimple.MatrixMultiplicationGate("m31", [[1 + i + j for j in range(31)]
+                                                    for i in range(31)])
+    with pytest.raises(ValueError, match=r"gate matmul_m31: 33 slots > 32"):
+        qs.encode_gate_programs([gate], [[]], CSGeometry(62, 0, 6, 8), 62)
 
 
 @pytest.mark.parametrize("name", WITH_TERMS)

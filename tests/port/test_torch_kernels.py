@@ -7,8 +7,12 @@ cs/gates/u32.py, the 12×12 matrix gate included), and the fma 2^10, xor4
 lookup 2^9, general-lookup 2^9 and witness-column 2^5 proofs identical on
 the card and the CPU, materialized and streamed; kernel B8 (BabyBear
 Poseidon2) and the BabyBear fma, xor4 and mini-STARK proofs at 2^10
-likewise. Marked `cuda`: they skip where no card is present and run on
-the card with `python -m pytest tests/port/test_torch_kernels.py`."""
+likewise; B6 over the flattened Poseidon2 and Poseidon gates and the
+extension FMA gate in one launch (a program read from global memory), and
+the recursion circuit over a Fibonacci proof at 2^10, under both
+transcripts, identical on the card and the CPU. Marked `cuda`: they skip
+where no card is present and run on the card with
+`python -m pytest tests/port/test_torch_kernels.py`."""
 
 import functools
 
@@ -16,17 +20,20 @@ import numpy as np
 import pytest
 import torch
 
+from boojum_tpu_torch import circuits
 from boojum_tpu_torch.circuits import (
     build_blake2s, build_fma, build_gate_zoo, build_general_lookup, build_keccak256,
     build_secp256k1_ladder, build_sha256, build_xor_lookup, build_zero_check_witness,
     fma_proof_config, small_proof_config, xor_lookup_proof_config,
 )
-from boojum_tpu_torch.cs.gates import simple, u32
+from boojum_tpu_torch.cs.gates import (
+    ExtFmaGate, Poseidon2FlattenedGate, PoseidonFlattenedGate, simple, u32,
+)
 from boojum_tpu_torch.cs.types import CSGeometry
 from boojum_tpu_torch.field import goldilocks as gf
 from boojum_tpu_torch.hashes import poseidon2 as p2
 from boojum_tpu_torch.ntt import ntt
-from boojum_tpu_torch.prover import fri, generate_setup, prove, verify
+from boojum_tpu_torch.prover import ProofConfig, fri, generate_setup, prove, verify
 from boojum_tpu_torch.prover import quotient_sweep as qs
 from boojum_tpu_torch.prover.setup import build_selector_tree
 
@@ -496,3 +503,50 @@ def test_babybear_proof_identical_on_card_and_cpu(dev, circuit):
         assert quotient_identity_at_z(asm, s_gpu, p_gpu)
         assert query_paths_hold(asm, s_gpu, p_gpu)
     assert K.LAUNCHES["poseidon2_bb_leaf"] > 0 and K.LAUNCHES["poseidon2_bb_node"] > 0
+
+
+@pytest.mark.parametrize("geometry", _GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("fill", ["random", "p-1", "high"])
+def test_hash_gate_programs_kernel_matches_plain(dev, monkeypatch, fill, geometry):
+    """B6 over the two flattened permutation gates and the extension FMA
+    gate in one launch, each on its own selector path (together a program
+    read from global memory), in each launch geometry."""
+    monkeypatch.setattr(qs, "launch_geometry", lambda n, parts: geometry)
+    geom = circuits.recursion_geometry()
+    gates = [Poseidon2FlattenedGate.instance(), PoseidonFlattenedGate.instance(),
+             ExtFmaGate.instance()]
+    launch = qs.gate_terms_fn(gates, [[0], [1, 0], [1, 1]], geom, dev).launch
+    rng = np.random.default_rng(5)
+    n = 1 << 11
+    r = lambda *shape: _filled(rng, fill, *shape, device=dev)  # noqa: E731
+    a = _CHALLENGES[fill][0]
+    built = launch(r(130, n), None, r(8, n),
+                   [(a + i, a) for i in range(qs.num_gate_terms(gates, geom))])
+    assert not qs.prog_in_shared(built[0])
+    for got, want in zip(qs.sweep(*built), qs.sweep_plain(*built)):
+        _same(got, want)
+
+
+@pytest.mark.parametrize("transcript", ["poseidon2", "poseidon"])
+def test_recursion_proof_card_matches_cpu(dev, transcript):
+    """The recursion circuit over the Fibonacci proof (2^10 rows, LDE 2)
+    set up and proved on the card and on the CPU: the same cap and proof
+    JSON, accepted by the verifier, the inner public input surfaced."""
+    cfg = circuits.recursion_inner_config(transcript)
+    inner_asm = circuits.fibonacci(circuits.port_recursion_namespace())[0].into_assembly()
+    inner_setup = generate_setup(inner_asm, cfg, device=dev)
+    inner_proof = prove(inner_asm, inner_setup, cfg, device=dev)
+    asm = circuits.build_recursion(inner_setup.vk, [inner_proof],
+                                   inner_asm.gates).into_assembly()
+    assert asm.trace_len == 1 << 10
+    outer_cfg = ProofConfig(fri_lde_factor=2, merkle_tree_cap_size=8, num_queries=4,
+                            fri_final_degree=16)
+    runs = []
+    for device in (dev, "cpu"):
+        setup = generate_setup(asm, outer_cfg, device=device)
+        runs.append((setup, prove(asm, setup, outer_cfg, device=device)))
+    (s_gpu, p_gpu), (s_cpu, p_cpu) = runs
+    assert s_gpu.vk.setup_merkle_cap == s_cpu.vk.setup_merkle_cap
+    assert p_gpu.to_json() == p_cpu.to_json()
+    assert verify(s_gpu.vk, p_gpu, asm.gates)
+    assert p_gpu.public_inputs == inner_proof.public_inputs
