@@ -72,7 +72,7 @@ from .cs.gates import (
 )
 from .cs.implementations import ConstraintSystem
 from .cs.lookup_table import LookupTable, range_check_table
-from .cs.types import CSGeometry, LookupParameters
+from .cs.types import DEV_CS_CONFIG, CSGeometry, LookupParameters
 from .field import gl
 from .gadgets import (
     SECP256K1_BASE, Boolean, NonNativeField, Num, SWProjectivePoint, UInt8, UInt16, UInt32,
@@ -104,9 +104,10 @@ SHA256_GEOMETRY = CSGeometry(
 SHA256_LOOKUP = LookupParameters(width=4, num_repetitions=8)
 
 
-def build_fma(log_n: int, field: str = "goldilocks") -> ConstraintSystem:
-    """The fma chain filling 2^log_n rows (8 rows left for padding)."""
-    cs = ConstraintSystem(FMA_GEOMETRY, 1 << log_n, field=field)
+def build_fma(log_n: int, field: str = "goldilocks", config=DEV_CS_CONFIG) -> ConstraintSystem:
+    """The fma chain filling 2^log_n rows (8 rows left for padding);
+    `config` goes to the ConstraintSystem."""
+    cs = ConstraintSystem(FMA_GEOMETRY, 1 << log_n, config, field=field)
     a = cs.alloc_variable_with_value(1)
     b = cs.alloc_variable_with_value(2)
     per_row = FmaGate.instance().num_repetitions(FMA_GEOMETRY)
@@ -164,12 +165,14 @@ def sha256_capacity(num_bytes: int) -> int:
     return 1 << max(17, (num_bytes // 8192).bit_length() + 16)
 
 
-def build_sha256(num_bytes: int = 8192, message: bytes | None = None):
+def build_sha256(num_bytes: int = 8192, message: bytes | None = None,
+                 config=DEV_CS_CONFIG):
     """sha256 of `message` (default: bench.py's message of num_bytes) over
-    range-checked input bytes. Returns (cs, the 32 digest byte variables)."""
+    range-checked input bytes; `config` goes to the ConstraintSystem.
+    Returns (cs, the 32 digest byte variables)."""
     if message is None:
         message = bench_message(num_bytes)
-    cs = ConstraintSystem(SHA256_GEOMETRY, sha256_capacity(len(message)),
+    cs = ConstraintSystem(SHA256_GEOMETRY, sha256_capacity(len(message)), config,
                           lookup_params=SHA256_LOOKUP)
     digest = sha256(cs, allocate_u8_input(cs, message))
     return cs, digest

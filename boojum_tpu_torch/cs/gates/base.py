@@ -42,11 +42,16 @@ class Gate:
 
     _inst = None
 
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        cls._inst = None  # each gate class caches an instance of its own
+
     @classmethod
     def instance(cls):
-        if cls.__dict__.get("_inst") is None:
-            cls._inst = cls()
-        return cls._inst
+        inst = cls._inst
+        if inst is None:
+            inst = cls._inst = cls()
+        return inst
 
     def evaluate(self, ops, row: RowView, dst: TermsCollector):
         raise NotImplementedError

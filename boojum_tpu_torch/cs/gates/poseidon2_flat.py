@@ -9,16 +9,17 @@ columns, the Era recursion geometry's.
 
 One traversal (`flat_permutation`) drives the constraint evaluator (over
 field-like ops) and the witness (over host ints). Goldilocks only: over
-BabyBear the gate is refused at synthesis.
-
-Difference: the JAX gate hands its resolver to a native Poseidon2 witness
-routine; here the values are computed at once, in the same order.
+BabyBear the gate is refused at synthesis. A permutation's witness goes to
+the native tape as one OP_POSEIDON2 op (12 outputs, then the 106
+auxiliaries in this traversal's order), with `_witness_trace` as its
+portable closure.
 """
 
 from __future__ import annotations
 
 from ...field import gl
 from ...hashes import poseidon2_params as params
+from ...native import OP_POSEIDON2
 from ..field_like import ScalarOps
 from .base import Gate
 
@@ -113,6 +114,7 @@ class FlattenedPermutationGate(Gate):
     num_terms = NUM_AUX + SW
     max_degree = 7
     feature = "?"
+    native = None  # the typed-op descriptor of a permutation, if the tape has one
 
     @staticmethod
     def permutation_fn(ops, state, reset):
@@ -155,7 +157,7 @@ class FlattenedPermutationGate(Gate):
             out, aux = trace_of(cls.permutation_fn, vals)
             return out + aux
 
-        cs.set_values_with_dependencies(list(input_vars), outs + auxs, resolve)
+        cs.set_values_with_dependencies(list(input_vars), outs + auxs, resolve, cls.native)
         cs.place_gate(cls.instance(), list(input_vars) + outs + auxs, ())
         return outs
 
@@ -164,3 +166,4 @@ class Poseidon2FlattenedGate(FlattenedPermutationGate):
     name = "poseidon2_flat"
     feature = "the flattened Poseidon2 gate (Goldilocks round constants)"
     permutation_fn = staticmethod(flat_permutation)
+    native = (OP_POSEIDON2, ())

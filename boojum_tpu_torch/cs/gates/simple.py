@@ -7,14 +7,18 @@ zero_check.rs with and without its witness-column inverse, bounded_wrapper.rs,
 lookup_marker.rs, simple_non_linearity_with_constant.rs,
 matrix_multiplication_gate.rs, constants_allocator_as_explicit_constraint.rs).
 
-Synthesis resolves every value eagerly as a host int: a constructor computes
-its outputs and places the instance, reducing modulo the circuit's field
-(`cs.p`).
+A constructor allocates its outputs, registers their witness closure with
+the system's resolver (with the JAX package's typed descriptor for the
+native tape where it has one) and places the instance; values reduce
+modulo the circuit's field (`cs.p`).
 """
 
 from __future__ import annotations
 
+from operator import mul
+
 from ...field.spec import spec_of
+from ...native import OP_CONST, OP_FMA, OP_REDUCTION
 from .base import Gate
 
 
@@ -37,11 +41,13 @@ class FmaGate(Gate):
     @staticmethod
     def fma(cs, a, b, c, coeff_ab=1, coeff_c=1):
         """Allocate and constrain d = coeff_ab·a·b + coeff_c·c."""
-        ca, cc = coeff_ab % cs.p, coeff_c % cs.p
-        val = cs.values
-        value = (ca * val[a >> 1] * val[b >> 1] + cc * val[c >> 1]) % cs.p
-        d = cs.alloc_variable_with_value(value)
-        cs.place_gate(FmaGate.instance(), (a, b, c, d), (ca, cc))
+        d = cs.alloc_variable_without_value()
+        p = cs.p
+        ca, cc = coeff_ab % p, coeff_c % p
+        coeffs = (ca, cc)
+        cs.set_values_with_dependencies(
+            (a, b, c), (d,), lambda v: [ca * v[0] * v[1] + cc * v[2]], (OP_FMA, coeffs))
+        cs.place_gate(FmaGate.instance(), (a, b, c, d), coeffs)
         return d
 
     @staticmethod
@@ -64,12 +70,16 @@ class ConstantsAllocatorGate(Gate):
         dst.push(ops.sub(row.v(0), row.c(0)))
 
     def padding_instance(self, cs, constants=()):
-        return [cs.alloc_variable_with_value(constants[0] if constants else 0)]
+        c = constants[0] if constants else 0
+        v = cs.alloc_variable_without_value()
+        cs.set_values_with_dependencies([], [v], lambda _: [c], (OP_CONST, (c,)))
+        return [v]
 
     @staticmethod
     def allocate_constant(cs, value: int):
         value = value % cs.p
-        v = cs.alloc_variable_with_value(value)
+        v = cs.alloc_variable_without_value()
+        cs.set_values_with_dependencies([], [v], lambda _: [value], (OP_CONST, (value,)))
         cs.place_gate(ConstantsAllocatorGate.instance(), (v,), (value,))
         return v
 
@@ -118,10 +128,11 @@ class ReductionGate(Gate):
     @staticmethod
     def reduce(cs, vars4, coeffs4):
         """Allocate and constrain out = Σ coeffs4[i]·vars4[i]."""
-        cf = tuple(c % cs.p for c in coeffs4)
-        val = cs.values
-        value = sum(c * val[v >> 1] for v, c in zip(vars4, cf)) % cs.p
-        out = cs.alloc_variable_with_value(value)
+        out = cs.alloc_variable_without_value()
+        p = cs.p
+        cf = tuple([c % p for c in coeffs4])
+        cs.set_values_with_dependencies(
+            list(vars4), [out], lambda v: [sum(map(mul, cf, v))], (OP_REDUCTION, cf))
         cs.place_gate(ReductionGate.instance(), (*vars4, out), cf)
         return out
 
@@ -187,8 +198,13 @@ class LookupMarkerGate(Gate):
         table = cs.get_table(tid)
         row0 = [int(v) for v in table.content[0]]
         row0 += [0] * (self.principal_width - table.width)
+        pads = []
+        for v in row0:
+            p = cs.alloc_variable_without_value()
+            cs.resolver.set_value(p, v)
+            pads.append(p)
         cs.bump_multiplicity(tid, 0)
-        return [cs.alloc_variable_with_value(v) for v in row0]
+        return pads
 
     @classmethod
     def instance(cls, width: int = 0):
@@ -243,10 +259,11 @@ class ReductionByPowersGate(Gate):
 
     @staticmethod
     def reduce(cs, vars4, base):
+        out = cs.alloc_variable_without_value()
         b = base % cs.p
-        val = cs.values
-        value = sum(val[v >> 1] * pow(b, i, cs.p) for i, v in enumerate(vars4)) % cs.p
-        out = cs.alloc_variable_with_value(value)
+        cs.set_values_with_dependencies(
+            list(vars4), [out],
+            lambda v: [sum(x * pow(b, i, cs.p) for i, x in enumerate(v))])
         cs.place_gate(ReductionByPowersGate.instance(), (*vars4, out), (b,))
         return out
 
@@ -344,10 +361,10 @@ class DotProductGate(Gate):
     def dot(cs, pairs):
         if len(pairs) != 4:
             raise ValueError("a dot product takes four pairs")
+        out = cs.alloc_variable_without_value()
         flat = [v for pair in pairs for v in pair]
-        val = cs.values
-        value = sum(val[a >> 1] * val[b >> 1] for a, b in pairs) % cs.p
-        out = cs.alloc_variable_with_value(value)
+        cs.set_values_with_dependencies(
+            flat, [out], lambda v: [sum(v[2 * i] * v[2 * i + 1] for i in range(4))])
         cs.place_gate(DotProductGate.instance(), (*flat, out), ())
         return out
 
@@ -452,13 +469,16 @@ class SimpleNonlinearityGate(Gate):
         dst.push(ops.sub(ops.add(x7, row.c(0)), y))
 
     def padding_instance(self, cs, constants=()):
-        y = cs.alloc_variable_with_value(constants[0] if constants else 0)
+        c = constants[0] if constants else 0
+        y = cs.alloc_variable_without_value()
+        cs.set_values_with_dependencies([], [y], lambda _: [c])
         return [cs.zero_var(), y]
 
     @staticmethod
     def apply(cs, x, c: int):
+        y = cs.alloc_variable_without_value()
         c = c % cs.p
-        y = cs.alloc_variable_with_value(pow(cs.get_value(x), 7, cs.p) + c)
+        cs.set_values_with_dependencies([x], [y], lambda v: [pow(v[0], 7, cs.p) + c])
         cs.place_gate(SimpleNonlinearityGate.instance(), (x, y), (c,))
         return y
 
@@ -523,14 +543,21 @@ class ExplicitConstantsAllocatorGate(Gate):
             dst.push(ops.sub(row.v(i), ops.constant(c)))
 
     def padding_instance(self, cs, constants=()):
-        return [cs.alloc_variable_with_value(c) for c in self.constants]
+        vals = list(self.constants)
+        places = cs.alloc_multiple_variables_without_values(len(vals))
+        cs.set_values_with_dependencies([], places, lambda _: vals)
+        return places
 
     @staticmethod
     def allocate(cs, constants_set=()):
         """Place one instance; returns {value: variable} for 0, 1, p - 1 and
         every value of constants_set."""
         gate = ExplicitConstantsAllocatorGate(constants_set, cs.field)
-        variables = [cs.alloc_variable_with_value(c) for c in gate.constants]
+        variables = []
+        for c in gate.constants:
+            v = cs.alloc_variable_without_value()
+            cs.set_values_with_dependencies([], [v], lambda _, c=c: [c])
+            variables.append(v)
         cs.place_gate(gate, variables, ())
         return dict(zip(gate.constants, variables))
 

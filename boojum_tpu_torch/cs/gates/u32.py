@@ -9,6 +9,7 @@ distinct field element, so synthesizing one over BabyBear raises.
 
 from __future__ import annotations
 
+from ...native import OP_BYTE_TRIADD, OP_TRIADD, OP_U32_ADD, OP_U32_FMA, OP_U32_SUB
 from .base import Gate
 
 SHIFT32 = 1 << 32
@@ -39,7 +40,7 @@ class U32AddGate(Gate):
         c, cout = cs.alloc_multiple_variables_without_values(2)
         cs.set_values_with_dependencies(
             [a, b, carry_in], [c, cout],
-            lambda v: [sum(v) & 0xFFFFFFFF, sum(v) >> 32])
+            lambda v: [sum(v) & 0xFFFFFFFF, sum(v) >> 32], (OP_U32_ADD, (32,)))
         cs.place_gate(U32AddGate.instance(), (a, b, carry_in, c, cout), ())
         return c, cout
 
@@ -68,7 +69,8 @@ class U32SubGate(Gate):
             d = v[0] - v[1] - v[2]
             return [d + SHIFT32, 1] if d < 0 else [d, 0]
 
-        cs.set_values_with_dependencies([a, b, borrow_in], [c, bout], resolve)
+        cs.set_values_with_dependencies([a, b, borrow_in], [c, bout], resolve,
+                                        (OP_U32_SUB, ()))
         cs.place_gate(U32SubGate.instance(), (a, b, borrow_in, c, bout), ())
         return c, bout
 
@@ -118,7 +120,8 @@ class U32FmaGate(Gate):
             part = alo * blo + cv + cinv + ((alo * bhi + ahi * blo) << 16)
             return [alo, ahi, blo, bhi, s & 0xFFFFFFFF, s >> 32, part >> 32]
 
-        cs.set_values_with_dependencies([a, b, c, carry_in], outs, resolve)
+        cs.set_values_with_dependencies([a, b, c, carry_in], outs, resolve,
+                                        (OP_U32_FMA, ()))
         cs.place_gate(U32FmaGate.instance(), (a, b, c, carry_in, *outs), ())
         for half in (a_lo, a_hi, b_lo, b_hi):
             decompose_and_check(cs, half, 16)
@@ -145,7 +148,8 @@ class U32TriAddCarryAsChunkGate(Gate):
         _require_capacity(cs, 32, "U32TriAddCarryAsChunkGate")
         low, high = cs.alloc_multiple_variables_without_values(2)
         cs.set_values_with_dependencies(
-            [a, b, c], [low, high], lambda v: [sum(v) & 0xFFFFFFFF, sum(v) >> 32])
+            [a, b, c], [low, high], lambda v: [sum(v) & 0xFFFFFFFF, sum(v) >> 32],
+            (OP_TRIADD, ()))
         cs.place_gate(U32TriAddCarryAsChunkGate.instance(), (a, b, c, low, high), ())
         return low, high
 
@@ -184,7 +188,7 @@ class ByteTriAddGate(Gate):
             s = sum(b << (8 * (i % 4)) for i, b in enumerate(v))
             return [(s >> (8 * i)) & 0xFF for i in range(4)] + [s >> 32]
 
-        cs.set_values_with_dependencies(ins, [*outs, carry], resolve)
+        cs.set_values_with_dependencies(ins, [*outs, carry], resolve, (OP_BYTE_TRIADD, ()))
         cs.place_gate(ByteTriAddGate.instance(), [*ins, *outs, carry], ())
         return outs, carry
 
@@ -216,7 +220,8 @@ class UIntXAddGate(Gate):
         c, cout = cs.alloc_multiple_variables_without_values(2)
         mask, bits = self.shift - 1, self.width_bits
         cs.set_values_with_dependencies(
-            [a, b, carry_in], [c, cout], lambda v: [sum(v) & mask, sum(v) >> bits])
+            [a, b, carry_in], [c, cout], lambda v: [sum(v) & mask, sum(v) >> bits],
+            (OP_U32_ADD, (bits,)))
         cs.place_gate(self, (a, b, carry_in, c, cout), ())
         return c, cout
 

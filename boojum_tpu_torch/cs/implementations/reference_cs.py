@@ -25,18 +25,28 @@ The circuit is synthesized over a field (`field="goldilocks"` or
 "babybear"): values and gate constants reduce modulo its prime, and the
 assembly carries the field's name, on which setup and prove dispatch.
 
-Difference: every value is resolved eagerly as a host int when its
-variable is allocated, so there is no resolver.
+Values live in a witness resolver (`..dag`): a gadget registers a closure
+`fn(values of ins) -> values of outs`, with a typed descriptor (`native=`)
+where the JAX package gives one. By default the native tape resolves over
+Goldilocks and the Python resolver over BabyBear (`make_resolver`); a
+caller may pass its own (`resolver=`). Under SETUP_CS_CONFIG the resolver
+is the NullResolver: the placement is built without a witness, and an
+assembly of the same circuit from any witness takes it over by
+`CSAssembly.with_external_witness`.
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
+from ...dag import NullResolver, make_resolver
 from ...field.spec import spec_of
+from ...native import OP_LOOKUP, OP_LOOKUP_BUMP
 from ..gates.base import Gate
 from ..gates.simple import ConstantsAllocatorGate, LookupMarkerGate, NopGate
-from ..types import CSGeometry, LookupParameters
+from ..types import DEV_CS_CONFIG, CSConfig, CSGeometry, LookupParameters
 
 
 class FieldCapacityError(ValueError):
@@ -47,19 +57,31 @@ class FieldCapacityError(ValueError):
 
 class ConstraintSystem:
     def __init__(self, geometry: CSGeometry, max_trace_len: int,
+                 config: CSConfig = DEV_CS_CONFIG,
                  lookup_params: LookupParameters | None = None,
-                 field: str = "goldilocks"):
+                 resolver=None, field: str = "goldilocks"):
         self.field = field
         self.p = spec_of(field).p
+        self.config = config
         self.lookup_params = lookup_params or LookupParameters()
         self.geometry = geometry
         self.max_trace_len = max_trace_len
-        self.values: list[int] = []  # value of variable k (place 2k)
-        self.wit_values: list[int] = []  # value of witness k (place 2k + 1)
+        if resolver is None:
+            resolver = (make_resolver(field) if config.evaluate_witness
+                        else NullResolver(p=self.p))
+        elif resolver.p != self.p:
+            raise ValueError(f"resolver over p = {resolver.p}, circuit over {field}")
+        self.resolver = resolver
+        # synthesis's hottest call, bound once: the method below documents it
+        self.set_values_with_dependencies = resolver.add_resolution
+        self.next_var_idx = 0
+        self.next_wit_idx = 0
         c = geometry.num_columns_under_copy_permutation
         self.copy_placement = np.full((c, max_trace_len), -1, dtype=np.int64)
         self.wit_placement = np.full((geometry.num_witness_columns, max_trace_len), -1,
                                      dtype=np.int64)
+        self._copy_cells = memoryview(self.copy_placement.reshape(-1))
+        self._wit_cells = memoryview(self.wit_placement.reshape(-1))
         self.row_gate = np.full(max_trace_len, -1, dtype=np.int32)
         self.gates: list[Gate] = []
         self.gate_index: dict[str, int] = {}
@@ -73,38 +95,42 @@ class ConstraintSystem:
         self._table_by_name: dict[str, int] = {}
         self.lookup_rows: list[tuple[int, list[int]]] = []  # (table id, places)
         self.lookup_multiplicities: dict[tuple[int, int], int] = {}
+        self._bumps: dict = {}  # table id -> (closure, descriptor) of its counter
 
     # -- allocation ---------------------------------------------------------
 
     def alloc_variable_with_value(self, value: int) -> int:
-        self.values.append(int(value) % self.p)
-        return (len(self.values) - 1) << 1
+        place = self.next_var_idx << 1
+        self.next_var_idx += 1
+        self.resolver.set_value(place, int(value) % self.p)
+        return place
 
     def alloc_multiple_variables_without_values(self, n: int) -> list[int]:
         """n fresh variables, valued later by set_values_with_dependencies."""
-        base = len(self.values)
-        self.values.extend([0] * n)
+        base = self.next_var_idx
+        self.next_var_idx = base + n
         return [(base + i) << 1 for i in range(n)]
 
     def alloc_variable_without_value(self) -> int:
-        return self.alloc_multiple_variables_without_values(1)[0]
+        place = self.next_var_idx << 1
+        self.next_var_idx += 1
+        return place
 
     def alloc_witness_without_value(self) -> int:
         """A fresh witness-column place, valued later."""
-        self.wit_values.append(0)
-        return ((len(self.wit_values) - 1) << 1) | 1
+        place = (self.next_wit_idx << 1) | 1
+        self.next_wit_idx += 1
+        return place
 
-    def _store(self, place: int):
-        return self.wit_values if place & 1 else self.values
-
-    def set_values_with_dependencies(self, ins, outs, fn):
-        """Value `outs` as fn(values of `ins`), at once."""
-        vals = fn([self.get_value(p) for p in ins])
-        for p, v in zip(outs, vals):
-            self._store(p)[p >> 1] = int(v) % self.p
+    def set_values_with_dependencies(self, ins, outs, fn, native=None, table=None):
+        """Value `outs` as fn(values of `ins`) once the inputs are known.
+        `native` is the typed-op descriptor (op id, params) of the native
+        tape, `table` the lookup table an op reads; `fn` is the portable
+        form every resolver can run."""
+        self.resolver.add_resolution(ins, outs, fn, native, table)
 
     def get_value(self, place: int) -> int:
-        return self._store(place)[place >> 1]
+        return self.resolver.get_value(place)
 
     def require_field_bits(self, bits: int, feature: str) -> None:
         """Raise FieldCapacityError unless every value below 2^bits is a
@@ -151,10 +177,10 @@ class ConstraintSystem:
         """Place one instance; returns (first_column, row) of the instance.
         A gate with witness columns takes its witness places in the
         instance's slot of the witness columns."""
-        gid = self._register_gate(gate)
         key = (gate.name, constants)
         tool = self._tooling.get(key)
-        if tool is None or tool[1] >= gate.num_repetitions(self.geometry):
+        if tool is None or tool[1] >= tool[2]:
+            gid = self._register_gate(gate)
             row = self.next_row
             if row >= self.max_trace_len:
                 raise ValueError("trace overflow")
@@ -162,20 +188,29 @@ class ConstraintSystem:
             self.row_gate[row] = gid
             if constants:
                 self.gate_constants[row] = tuple(int(c) % self.p for c in constants)
-            tool = [row, 0]
+            # [row, instances placed, instances a row, widths of an instance]
+            tool = [row, 0, gate.num_repetitions(self.geometry), gate.principal_width,
+                    gate.witness_width]
             self._tooling[key] = tool
-        row, used = tool
-        off = used * gate.principal_width
-        if len(var_places) != gate.principal_width:
-            raise ValueError(f"gate {gate.name} takes {gate.principal_width} places")
-        cp = self.copy_placement
-        for i, p in enumerate(var_places):
-            cp[off + i, row] = p
-        if len(wit_places) != gate.witness_width:
-            raise ValueError(f"gate {gate.name} takes {gate.witness_width} witness places")
-        woff = used * gate.witness_width
-        for i, p in enumerate(wit_places):
-            self.wit_placement[woff + i, row] = p
+        row, used, _, width, wit_width = tool
+        off = used * width
+        if len(var_places) != width:
+            raise ValueError(f"gate {gate.name} takes {width} places")
+        # the placements' cells through flat views: column c, row r at c·L + r
+        L = self.max_trace_len
+        cell = self._copy_cells
+        at = off * L + row
+        for p in var_places:
+            cell[at] = p
+            at += L
+        if len(wit_places) != wit_width:
+            raise ValueError(f"gate {gate.name} takes {wit_width} witness places")
+        if wit_places:
+            cell = self._wit_cells
+            at = used * wit_width * L + row
+            for p in wit_places:
+                cell[at] = p
+                at += L
         tool[1] = used + 1
         return off, row
 
@@ -205,7 +240,10 @@ class ConstraintSystem:
         return self.lookup_tables[table_id - 1]
 
     def bump_multiplicity(self, table_id: int, row: int, times: int = 1):
-        """Count `times` more uses of row `row` of the table."""
+        """Count `times` more uses of row `row` of the table (nothing
+        without a witness)."""
+        if not self.config.evaluate_witness:
+            return
         key = (table_id, row)
         self.lookup_multiplicities[key] = self.lookup_multiplicities.get(key, 0) + times
 
@@ -217,25 +255,43 @@ class ConstraintSystem:
         params = self.lookup_params
         if not params.is_enabled:
             raise ValueError("lookups are not configured")
-        table = self.get_table(table_id)
-        if len(keys) != table.width or table.width > params.width:
+        table = self.lookup_tables[table_id - 1]
+        width = table.width
+        if len(keys) != width or width > params.width:
             raise ValueError(f"table {table.name}: tuple of {len(keys)} places")
         keys = list(keys)
-        while len(keys) < params.width:
-            keys.append(self.zero_var())
+        if width < params.width:
+            keys += [self.zero_var()] * (params.width - width)
         if params.use_specialized_columns:
             self.lookup_rows.append((table_id, keys))
         else:
             self.place_gate(LookupMarkerGate.instance(params.width), keys, (table_id,))
-        self.bump_multiplicity(
-            table_id, table.row_index([self.get_value(p) for p in keys[: table.width]]))
+        if self.config.evaluate_witness:
+            bump = self._bumps.get(table_id)
+            if bump is None:
+                bump = self._bumps[table_id] = (self._bump_fn(table_id),
+                                                (OP_LOOKUP_BUMP, (table_id,)))
+            self.resolver.add_resolution(keys[:width], (), *bump, table)
+
+    def _bump_fn(self, table_id: int):
+        """The closure that counts a resolved tuple's row of a table."""
+        table, counts = self.get_table(table_id), self.lookup_multiplicities
+
+        def bump(vals):
+            key = (table_id, table.row_index(vals))
+            counts[key] = counts.get(key, 0) + 1
+            return ()
+
+        return bump
 
     def perform_lookup(self, table_id: int, key_places: list[int]) -> list[int]:
         """Allocate the table's values for the key variables and enforce."""
-        table = self.get_table(table_id)
+        table = self.lookup_tables[table_id - 1]
         outs = self.alloc_multiple_variables_without_values(table.num_values)
-        self.set_values_with_dependencies(list(key_places), outs, table.lookup_values)
-        self.enforce_lookup(table_id, list(key_places) + outs)
+        key_places = list(key_places)
+        self.resolver.add_resolution(key_places, outs, table.lookup_values,
+                                     (OP_LOOKUP, (table_id,)), table)
+        self.enforce_lookup(table_id, key_places + outs)
         return outs
 
     # -- freeze -------------------------------------------------------------
@@ -254,7 +310,7 @@ class ConstraintSystem:
                 break
             for (gname, constants), tool in unfinished:
                 gate = self.gates[self.gate_index[gname]]
-                row, used = tool
+                row, used = tool[0], tool[1]
                 while used < gate.num_repetitions(self.geometry):
                     off = used * gate.principal_width
                     for i, p in enumerate(gate.padding_instance(self, constants)):
@@ -302,7 +358,7 @@ class ConstraintSystem:
                 row0 = [int(v) for v in table.content[0]] + [0] * (w - table.width)
                 tup = self.alloc_multiple_variables_without_values(w)
                 for p, v in zip(tup, row0):
-                    self.values[p >> 1] = v
+                    self.resolver.set_value(p, v)
                 pad_tuples[tid] = tup
             return tup
 
@@ -340,13 +396,10 @@ class ConstraintSystem:
             # the table id is each marker row's gate constant
             lookup_placement = np.zeros((0, n), dtype=np.int64)
             table_id_col = None
-
-        def scatter(placement, store):
-            values = np.array(store or [0], dtype=np.uint64)
-            cols = values[np.where(placement >= 0, placement >> 1, 0)]
-            cols[placement < 0] = 0
-            return cols
-
+        # after padding and lookup placement, which both register values:
+        # every resolution, the native tape's too, must have run
+        self.resolver.wait_till_resolved()
+        arena = self.resolver.arena(2 * max(self.next_var_idx, self.next_wit_idx) + 2)
         placement = self.copy_placement[:, :n]
         wit_placement = self.wit_placement[:, :n]
         multiplicities = table_stack = None
@@ -357,7 +410,18 @@ class ConstraintSystem:
             multiplicities = np.zeros(n, dtype=np.uint64)
             for (tid, row), cnt in self.lookup_multiplicities.items():
                 multiplicities[offsets[tid - 1] + row] = cnt
+            if self.config.evaluate_witness:
+                # the native tape's counts, merged
+                for tid in range(1, len(self.lookup_tables) + 1):
+                    nm = self.resolver.native_multiplicities(tid)
+                    if nm is not None:
+                        multiplicities[offsets[tid - 1]:offsets[tid]] += nm.astype(np.uint64)
             table_stack = stack_tables(self.lookup_tables, self.lookup_params.width, n)
+        if self.config.evaluate_witness:
+            public_inputs = [(c, r, int(arena[self.copy_placement[c, r]]))
+                             for (c, r) in self.public_inputs]
+        else:
+            public_inputs = [(c, r, 0) for (c, r) in self.public_inputs]
         return CSAssembly(
             geometry=self.geometry,
             trace_len=n,
@@ -365,22 +429,28 @@ class ConstraintSystem:
             row_gate=self.row_gate[:n].copy(),
             gate_constants=dict(self.gate_constants),
             copy_placement=placement.copy(),
-            copy_cols_values=scatter(placement, self.values),
+            copy_cols_values=scatter(placement, arena),
             wit_placement=wit_placement.copy(),
-            wit_cols_values=scatter(wit_placement, self.wit_values),
-            public_inputs=[
-                (c, r, self.get_value(int(self.copy_placement[c, r])))
-                for (c, r) in self.public_inputs
-            ],
+            wit_cols_values=scatter(wit_placement, arena),
+            public_inputs=public_inputs,
             lookup_params=self.lookup_params,
             lookup_placement=lookup_placement,
-            lookup_cols_values=scatter(lookup_placement, self.values),
+            lookup_cols_values=scatter(lookup_placement, arena),
             lookup_table_id_col=table_id_col,
             multiplicities=multiplicities,
             table_stack=table_stack,
             num_lookup_tables=len(self.lookup_tables) if lookups_on else 0,
             field=self.field,
+            lookup_tables=list(self.lookup_tables),
+            resolver=self.resolver,
         )
+
+
+def scatter(placement: np.ndarray, arena: np.ndarray) -> np.ndarray:
+    """The values of a placement's places; vacant cells (-1) read 0."""
+    cols = arena[np.where(placement >= 0, placement, 0)]
+    cols[placement < 0] = 0
+    return cols
 
 
 def stack_tables(tables, width: int, n: int) -> np.ndarray:
@@ -398,15 +468,20 @@ def stack_tables(tables, width: int, n: int) -> np.ndarray:
 class CSAssembly:
     """Frozen, provable CS over `field`: placement, column values, gates,
     public inputs, the witness columns and, with lookups, the specialized
-    columns (none in general mode), multiplicities and the stacked tables."""
+    columns (none in general mode), multiplicities and the stacked tables.
+    An assembly from synthesis keeps its tables and its resolver, whose
+    arena `witness_vec` returns; pickling drops the resolver."""
 
     def __init__(self, *, geometry, trace_len, gates, row_gate, gate_constants,
                  copy_placement, copy_cols_values, public_inputs,
                  wit_placement=None, wit_cols_values=None,
                  lookup_params=None, lookup_placement=None, lookup_cols_values=None,
                  lookup_table_id_col=None, multiplicities=None, table_stack=None,
-                 num_lookup_tables=0, field="goldilocks"):
+                 num_lookup_tables=0, field="goldilocks", lookup_tables=None,
+                 resolver=None):
         self.field = field
+        self.lookup_tables = lookup_tables
+        self.resolver = resolver
         self.geometry = geometry
         self.trace_len = trace_len
         self.gates = gates
@@ -484,3 +559,73 @@ class CSAssembly:
         if self.table_stack is None or self.table_stack.shape[0] != width + 1:
             raise ValueError(f"no stacked tables of width {width}")
         return self.table_stack
+
+    def __getstate__(self):
+        # the resolver holds the native engine's handles; the columns carry
+        # everything a proof needs
+        state = dict(self.__dict__)
+        state["resolver"] = None
+        return state
+
+    def witness_vec(self) -> np.ndarray:
+        """The resolver's arena over every placed place (era-boojum
+        WitnessVec, witness.rs): the witness of this circuit as one vector,
+        which `with_external_witness` takes back."""
+        if self.resolver is None:
+            raise RuntimeError(
+                "witness_vec() needs the live resolver, which a pickled assembly "
+                "drops: call it before pickling and carry the vector alongside")
+        count = int(max(self.copy_placement.max(initial=-1),
+                        self.wit_placement.max(initial=-1),
+                        self.lookup_placement.max(initial=-1)) + 1)
+        return self.resolver.arena(count)
+
+    def with_external_witness(self, witness_vec) -> "CSAssembly":
+        """The same circuit over another witness (era-boojum
+        into_assembly_for_repeated_proving, reference_cs.rs): the columns
+        are gathered from the vector and the lookup multiplicities counted
+        again from the placed tuples. The setup of this assembly proves it."""
+        arena = np.asarray(witness_vec, dtype=np.uint64)
+        copy_cols = scatter(self.copy_placement, arena)
+        mode = self.lookup_mode
+        multiplicities = self.multiplicities
+        if mode != "none":
+            if self.lookup_tables is None:
+                raise ValueError("recounting lookups needs the assembly's tables")
+            w = self.lookup_params.width
+            if mode == "general":
+                gid = self.lookup_marker_gid()
+                reps = self.gates[gid].num_repetitions(self.geometry)
+                rows = np.nonzero(self.row_gate == gid)[0]
+                tids = np.array([self.gate_constants[int(r)][0] for r in rows],
+                                dtype=np.uint64)
+                cols = copy_cols[:, rows]
+            else:
+                reps = self.lookup_params.num_repetitions
+                tids = np.asarray(self.lookup_table_id_col, dtype=np.uint64)
+                cols = scatter(self.lookup_placement, arena)
+            multiplicities = self._count_lookups(tids, cols, reps, w)
+        new = copy.copy(self)
+        new.resolver = None  # its arena holds the other witness
+        new.copy_cols_values = copy_cols
+        new.wit_cols_values = scatter(self.wit_placement, arena)
+        new.lookup_cols_values = scatter(self.lookup_placement, arena)
+        new.multiplicities = multiplicities
+        new.public_inputs = [(c, r, int(arena[self.copy_placement[c, r]]))
+                             for (c, r, _v) in self.public_inputs]
+        return new
+
+    def _count_lookups(self, tids, cols, reps: int, w: int) -> np.ndarray:
+        """Multiplicities over the stacked tables of the tuples in `cols`
+        ((reps·w, rows), the row's table id in `tids`)."""
+        offsets = np.cumsum([0] + [len(t) for t in self.lookup_tables])
+        out = np.zeros(self.trace_len, dtype=np.uint64)
+        for tid in np.unique(tids):
+            if tid == 0:
+                raise ValueError("a lookup row with table id 0")
+            table, at = self.lookup_tables[int(tid) - 1], tids == tid
+            for s in range(reps):
+                rows = table.rows_of(cols[s * w: s * w + table.width, at])
+                out += np.bincount(offsets[int(tid) - 1] + rows,
+                                   minlength=self.trace_len).astype(np.uint64)
+        return out

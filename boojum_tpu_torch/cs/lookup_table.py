@@ -30,19 +30,39 @@ class LookupTable:
         if len(self._index) != len(content):
             raise ValueError(f"table {name}: duplicate keys")
         self._rows = [tuple(int(v) for v in row) for row in content]
+        self._sorted_keys = None  # (keys as sorted byte strings, their rows)
 
     def __len__(self):
         return len(self.content)
 
     def row_index(self, vals) -> int:
         """Row of a full (keys + values) tuple; the keys alone also do."""
-        idx = self._index[tuple(int(v) for v in vals[: self.num_keys])]
+        # ints and numpy words hash alike: the keys index the map as they come
+        idx = self._index[tuple(vals[: self.num_keys])]
         if len(vals) > self.num_keys and tuple(vals) != self._rows[idx]:
             raise ValueError(f"table {self.name}: tuple {tuple(vals)} is not a row")
         return idx
 
     def lookup_values(self, keys) -> tuple:
-        return self._rows[self._index[tuple(int(k) for k in keys)]][self.num_keys :]
+        return self._rows[self._index[tuple(keys)]][self.num_keys :]
+
+    def rows_of(self, tuples: np.ndarray) -> np.ndarray:
+        """Rows of the columns of `tuples` ((keys [+ values], m) words), all
+        at once; raises ValueError unless every one is a row."""
+        k = self.num_keys
+        key_bytes = np.dtype((np.void, 8 * k))
+        if self._sorted_keys is None:
+            keys = np.ascontiguousarray(self.content[:, :k]).view(key_bytes).ravel()
+            order = np.argsort(keys, kind="stable")
+            self._sorted_keys = (keys[order], order)
+        table_keys, order = self._sorted_keys
+        query = np.ascontiguousarray(tuples[:k].T, dtype=np.uint64).view(key_bytes).ravel()
+        pos = np.minimum(np.searchsorted(table_keys, query), len(table_keys) - 1)
+        rows = order[pos]
+        if not (table_keys[pos] == query).all() or not np.array_equal(
+                self.content[rows, k:tuples.shape[0]], tuples[k:].T):
+            raise ValueError(f"table {self.name}: a tuple is not a row")
+        return rows
 
 
 def binop_table(name: str, op) -> LookupTable:

@@ -43,3 +43,16 @@ class LookupParameters:
     @property
     def specialized_columns_per_subargument(self) -> int:
         return self.width + (0 if self.share_table_id else 1)
+
+
+@dataclass(frozen=True)
+class CSConfig:
+    """What a synthesis run does (era-boojum's config bundles):
+    evaluate_witness: resolve witness values (off for setup-only synthesis,
+    whose resolver stores nothing)."""
+
+    evaluate_witness: bool = True
+
+
+DEV_CS_CONFIG = CSConfig(evaluate_witness=True)
+SETUP_CS_CONFIG = CSConfig(evaluate_witness=False)

@@ -7,6 +7,7 @@ ReductionGates."""
 from __future__ import annotations
 
 from ..cs.gates.simple import ReductionGate
+from ..native import OP_SPLIT
 from .tables import trixor4_table
 
 
@@ -63,7 +64,8 @@ def decompose_and_check(cs, var, num_bits):
     k = num_bits // 4
     chunks = cs.alloc_multiple_variables_without_values(k)
     cs.set_values_with_dependencies(
-        [var], chunks, lambda v: [(v[0] >> (4 * i)) & 0xF for i in range(k)])
+        [var], chunks, lambda v: [(v[0] >> (4 * i)) & 0xF for i in range(k)],
+        (OP_SPLIT, (4,)))
     enforce_chunk_recomposition(cs, chunks, var)
     range_check_chunks_batched(cs, chunks)
     return chunks

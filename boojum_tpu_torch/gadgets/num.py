@@ -12,6 +12,7 @@ from ..cs.gates.simple import (
     SelectionGate,
     ZeroCheckGate,
 )
+from ..native import OP_SPLIT
 from .boolean import Boolean
 
 
@@ -101,7 +102,8 @@ class Num:
 
         bits = cs.alloc_multiple_variables_without_values(num_bits)
         cs.set_values_with_dependencies(
-            [self.var], bits, lambda v: [(v[0] >> i) & 1 for i in range(num_bits)])
+            [self.var], bits, lambda v: [(v[0] >> i) & 1 for i in range(num_bits)],
+            (OP_SPLIT, (1,)))
         for b in bits:
             BooleanConstraintGate.enforce(cs, b)
         enforce_chunk_recomposition(cs, bits, self.var, bits_per_chunk=1)

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from ..cs.gates.simple import ReductionGate, SelectionGate
 from ..cs.gates.u32 import U32AddGate, U32FmaGate, U32SubGate, UIntXAddGate
+from ..native import OP_SPLIT
 from .boolean import Boolean
 from .chunk_utils import decompose_and_check
 from .num import Num
@@ -94,7 +95,8 @@ class UInt32(UIntX):
         """Four checked UInt8, little-endian."""
         outs = cs.alloc_multiple_variables_without_values(4)
         cs.set_values_with_dependencies(
-            [self.var], outs, lambda v: [(v[0] >> (8 * i)) & 0xFF for i in range(4)])
+            [self.var], outs, lambda v: [(v[0] >> (8 * i)) & 0xFF for i in range(4)],
+            (OP_SPLIT, (8,)))
         ReductionGate.enforce_reduce(cs, outs, [1, 1 << 8, 1 << 16, 1 << 24], self.var)
         return [UInt8.from_variable_checked(cs, o) for o in outs]
 

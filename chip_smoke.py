@@ -6,7 +6,9 @@
 Phases, each printing its seconds:
   1. the card's name and power limit, and its 32-bit integer issue rate
      (nvidia-smi, torch.cuda);
-  2. the build of every CUDA kernel (one nvcc per source, all at once);
+  2. the build of every CUDA kernel (one nvcc per source, all at once), and
+     of the native witness resolver (native/resolver.cpp, g++), each with
+     its seconds;
   3. every kernel against its plain PyTorch version on the card, word for
      word (tolerance 0: every result is an exact field element), at the
      shapes each 2^20 or 2^16 prove below gives it (fma; sha256 with LDE
@@ -143,10 +145,27 @@ Phases, each printing its seconds:
      child process started right after phase 7 from that proof's VK and
      proof JSON, driven as phase 5 with sha256's proof config (LDE 8: its
      gates' quotient degree is 8), its public inputs checked against the
-     inner proof's, then profiled as phase 6.
+     inner proof's, then profiled as phase 6;
+ 20. (run right after phase 8) one setup, many witnesses, as Era's prover
+     runs: a child process started before phase 3 synthesizes phase 7's
+     sha256 circuit under SETUP_CS_CONFIG (placement, no witness) and
+     sha256 over two further 8 KiB messages drawn from a seed, pickling
+     each witness vector with its digest places; the card sets up the
+     setup-only assembly (its VK must be phase 7's) and proves each
+     witness taken over by `with_external_witness`, each proof verified
+     under phase 7's VK, its digest read from the witness vector equal to
+     hashlib's, and the witness caps (phase 7's too) all different; the
+     last prove profiled as phase 6.
 
-Every Goldilocks path's prove must launch B6 once per quotient coset and
-B7 once per launch of its schedule. Prints the eleven profile lines, the
+Synthesis goes through the default witness resolver: the native tape over
+Goldilocks, the Python resolver over BabyBear; each synthesis line and
+child names its resolver and seconds. The 2^20 circuits of phases 5, 9,
+10, 12 and 13 are synthesized by child processes started after phase 3,
+beside phase 4, as phases 15-17 are before it; all five end before phase
+5, so that no timed prove of phases 5-8 and 20 shares the host with
+them. Every Goldilocks path's prove must
+launch B6 once per quotient coset and B7 once per launch of its schedule.
+Prints the twelve profile lines, the
 kernel table as one JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, if any phase
 fails, if no CUDA device is available, or if the package is missing.
@@ -190,6 +209,10 @@ REC_GATES_PATH = f"gate_terms_fn alone, 130 columns, 2^{HASH_LOG_N}"
 SPLIT_SCHEDULE = [5, 4, 3]  # entries past fri.MAX_FOLD_K split into launches
 SPLIT_PATH = f"{SHA_PATH}, keccak256 transcript, schedule {SPLIT_SCHEDULE}"
 Q16_PATH = f"{SHA_PATH}, blake2s transcript, quotient degree 16"
+# phase 20: one setup of the sha256 circuit, proofs of further witnesses
+REWITNESS_PATH = f"{SHA_PATH}, setup-only synthesis and external witnesses"
+REWITNESS_COUNT = 2
+REWITNESS_SEED = 2026
 TRANSCRIPT_KINDS = ("poseidon", "blake2s", "keccak256")  # phase 4's fma 2^10 pairs
 # the NTT (B1-B3) at the sizes where its pass plans change
 NTT_SIZES = (17, 21, 22, 23)
@@ -935,16 +958,21 @@ vk_path, proof_path, out = sys.argv[2:5]
 vk = vk_from_json(open(vk_path).read())
 proof = Proof.from_json(open(proof_path).read())
 t = time.perf_counter()
-asm = build_recursion(vk, [proof], [port_gate(name) for name in vk.gate_names]).into_assembly()
+cs = build_recursion(vk, [proof], [port_gate(name) for name in vk.gate_names])
+asm = cs.into_assembly()
 secs = time.perf_counter() - t
+print(f"recursion over one sha256 proof: synthesis {secs:.1f} s, resolver "
+      f"{cs.resolver.name}", flush=True)
 with open(out, "wb") as f:
-    pickle.dump({"asm": asm, "synthesis_s": secs, "output": proof.public_inputs}, f,
-                protocol=pickle.HIGHEST_PROTOCOL)
+    pickle.dump({"asm": asm, "synthesis_s": secs, "output": proof.public_inputs,
+                 "resolver": cs.resolver.name}, f, protocol=pickle.HIGHEST_PROTOCOL)
 """
-# Phases 15-17's synthesis (pure Python, a minute or more each): a child
-# process started before phase 3 synthesizes the circuit at 2^log_n rows and
-# pickles its assembly, its output (a hash's digest bytes; the ladder's
-# affine result, identity flag and scalar) and its own seconds to a file.
+# The 2^20 and 2^18 paths' synthesis (pure Python, 20 s to a minute each):
+# a child process started before phase 3 (phases 15-17) or after it
+# (phases 5, 9, 10, 12, 13) synthesizes the circuit at 2^log_n rows and pickles
+# its assembly, its output (a hash's digest bytes; the ladder's affine
+# result, identity flag and scalar; a public input's value) and its own
+# seconds to a file.
 CPU_SYNTHESIS = """
 import os, pickle, sys, time
 os.nice(10)
@@ -952,17 +980,64 @@ sys.path.insert(0, sys.argv[1])
 from boojum_tpu_torch import circuits, gadgets
 which, log_n, out = sys.argv[2], int(sys.argv[3]), sys.argv[4]
 t = time.perf_counter()
-cs, result = getattr(circuits, "build_" + which)(log_n)
+if which in ("fma", "fma_babybear"):
+    cs = circuits.build_fma(log_n, field="babybear" if which == "fma_babybear" else "goldilocks")
+elif which == "xor_lookup_babybear":
+    # two lookup rows a step over R = 2 columns
+    cs, result, _last = circuits.build_xor_lookup((1 << log_n) - 8, 1 << log_n,
+                                                   field="babybear")
+else:
+    cs, result = getattr(circuits, "build_" + which)(log_n)
 asm = cs.into_assembly()
 secs = time.perf_counter() - t
+print(f"{which} 2^{log_n}: synthesis {secs:.1f} s, resolver {cs.resolver.name}", flush=True)
 if which == "secp256k1_ladder":
     output = {"affine": (result.x.get_value(cs), result.y.get_value(cs)),
               "at_infinity": result.at_infinity.get_value(cs), "scalar": result.scalar}
-else:
+elif which in ("keccak256", "blake2s"):
     output = getattr(gadgets, which + "_digest_bytes")(cs, result)
+elif which in ("fma", "fma_babybear"):
+    output = None
+else:
+    output = cs.get_value(result)
 with open(out, "wb") as f:
-    pickle.dump({"asm": asm, "synthesis_s": secs, "output": output}, f,
-                protocol=pickle.HIGHEST_PROTOCOL)
+    pickle.dump({"asm": asm, "synthesis_s": secs, "output": output,
+                 "resolver": cs.resolver.name}, f, protocol=pickle.HIGHEST_PROTOCOL)
+"""
+# Phase 20's synthesis: a child process started before phase 3 synthesizes
+# the sha256 circuit under SETUP_CS_CONFIG (placement, no witness), then
+# sha256 over further messages of the same length drawn from a seed
+# through the default resolver (the native tape), and pickles the setup
+# assembly and, for each message, the witness vector, the places of the 32
+# digest variables, the message and its synthesis seconds.
+WITNESS_SYNTHESIS = """
+import os, pickle, sys, time
+import numpy as np
+os.nice(10)
+sys.path.insert(0, sys.argv[1])
+from boojum_tpu_torch.circuits import build_sha256
+from boojum_tpu_torch.cs.types import SETUP_CS_CONFIG
+nbytes, count, seed, out = int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+t = time.perf_counter()
+cs, digest = build_sha256(nbytes, config=SETUP_CS_CONFIG)
+setup_asm = cs.into_assembly()
+res = {"setup_asm": setup_asm, "setup_synthesis_s": time.perf_counter() - t,
+       "setup_digest_places": list(digest), "setup_resolver": cs.resolver.name,
+       "witnesses": []}
+rng = np.random.default_rng(seed)
+for _ in range(count):
+    message = rng.bytes(nbytes)
+    t = time.perf_counter()
+    cs, digest = build_sha256(message=message)
+    witness = cs.into_assembly().witness_vec()
+    secs = time.perf_counter() - t
+    print(f"sha256 {nbytes} B witness: synthesis {secs:.1f} s, resolver {cs.resolver.name}",
+          flush=True)
+    res["witnesses"].append({"message": message, "witness": witness,
+                             "digest_places": list(digest), "synthesis_s": secs,
+                             "resolver": cs.resolver.name})
+with open(out, "wb") as f:
+    pickle.dump(res, f, protocol=pickle.HIGHEST_PROTOCOL)
 """
 CHILDREN: list = []  # stopped when the script ends
 TEMP_DIRS: list = []  # removed when the script ends
@@ -982,10 +1057,12 @@ def synthesis_child_result(label: str, proc: subprocess.Popen, path: str) -> dic
     pickled, once it ends; the file is removed."""
     import pickle
 
-    _out, err = proc.communicate(timeout=1100)
+    out, err = proc.communicate(timeout=1100)
     if proc.returncode != 0:
         raise AssertionError(f"{label}: the synthesis child failed (rc {proc.returncode}):\n"
                              f"{err[-4000:]}")
+    for line in out.strip().splitlines():
+        log(f"    child: {line}")
     with open(path, "rb") as f:
         res = pickle.load(f)
     os.remove(path)
@@ -1059,10 +1136,12 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
 
     K.reset_launches()
     t = time.perf_counter()
-    asm, check_output, *child_s = synthesize()
-    synth_s = child_s[0] if child_s else time.perf_counter() - t
+    asm, check_output, *child = synthesize()
+    synth_s = child[0] if child else time.perf_counter() - t
+    resolver = child[1] if child else asm.resolver.name
     log(f"[{phase}] {label}: synthesis {synth_s:.1f} s"
-        f"{' in a child process' if child_s else ''}, {asm.trace_len} rows")
+        f"{' in a child process' if child else ''} (resolver {resolver}), "
+        f"{asm.trace_len} rows")
     if asm.trace_len != 1 << log_n:
         raise AssertionError(f"{label}: {asm.trace_len} rows, not 2^{log_n}")
     t = time.perf_counter()
@@ -1120,9 +1199,83 @@ def drive_path(torch, label, synthesize, cfg, log_n, phase, streams) -> dict:
             raise AssertionError(f"{label}: {on_prove['quotient_sweep']} sweep launches on "
                                  f"the prove, not one per coset of {setup.vk.quotient_degree}")
     return dict(asm=asm, setup=setup, proof=proof, launches=launches,
-                launches_on_prove=on_prove,
+                launches_on_prove=on_prove, resolver=resolver,
                 synthesis_s=synth_s, setup_s=setup_s, prove_cold_s=prove_s,
                 rounds_cold_s=timings, verify_s=verify_s, peak_device_memory_gib=peak)
+
+
+def drive_rewitness(torch, label, res, cfg, inner_vk, inner_proof, log_n) -> dict:
+    """Phase 20: Era's prover, one setup and a proof for each new witness.
+    `res` is the witness child's: the setup-only assembly of the sha256
+    circuit and, for each further message, its witness vector. The launch
+    counts go to 0 before the setup and are read after the last proof's
+    check. The setup's VK must be phase 7's (`inner_vk`); each witness is
+    taken over by `with_external_witness`, proved on the card, verified
+    under that VK, its digest read from its witness vector at the digest
+    places must be hashlib's, and every witness cap (phase 7's too) must
+    differ. The last proof is profiled as phase 6."""
+    from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch.prover import fri, generate_setup, prove, verify
+    from boojum_tpu_torch.serialization import vk_to_json
+
+    K.reset_launches()
+    asm = res["setup_asm"]
+    if asm.trace_len != 1 << log_n or asm.copy_cols_values.any():
+        raise AssertionError(f"{label}: the setup-only assembly is not 2^{log_n} rows of "
+                             f"placement without values")
+    t = time.perf_counter()
+    setup = generate_setup(asm, cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    if vk_to_json(setup.vk) != vk_to_json(inner_vk):
+        raise AssertionError(f"{label}: the setup-only VK differs from phase 7's")
+    log(f"[20] {label}: setup-only synthesis {res['setup_synthesis_s']:.1f} s in a child "
+        f"process (resolver {res['setup_resolver']}); setup {setup_s:.1f} s, VK equal to "
+        f"phase 7's")
+    caps = [inner_proof.witness_cap]
+    out = {"setup_synthesis_s": res["setup_synthesis_s"], "setup_s": setup_s, "proofs": []}
+    for i, item in enumerate(res["witnesses"]):
+        if item["digest_places"] != res["setup_digest_places"]:
+            raise AssertionError(f"{label}: witness {i} places its digest elsewhere")
+        wv = item["witness"]
+        digest = bytes(int(wv[place]) for place in item["digest_places"])
+        if digest != hashlib.sha256(item["message"]).digest():
+            raise AssertionError(f"{label}: witness {i}'s digest differs from hashlib's")
+        t = time.perf_counter()
+        wasm = asm.with_external_witness(wv)
+        take_s = time.perf_counter() - t
+        t = time.perf_counter()
+        proof = prove(wasm, setup, cfg, device="cuda")
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t
+        if not verify(inner_vk, proof, wasm.gates):
+            raise AssertionError(f"{label}: witness {i}'s proof rejected under phase 7's VK")
+        caps.append(proof.witness_cap)
+        log(f"[20] witness {i} (synthesis {item['synthesis_s']:.1f} s in the child, "
+            f"resolver {item['resolver']}): taken over in {take_s:.2f} s, proved in "
+            f"{prove_s:.2f} s, verified under phase 7's VK, digest = hashlib's")
+        out["proofs"].append({"synthesis_s": item["synthesis_s"], "resolver": item["resolver"],
+                              "with_external_witness_s": take_s, "prove_s": prove_s})
+    if len({json.dumps(c) for c in caps}) != len(caps):
+        raise AssertionError(f"{label}: two witness caps are equal")
+    launches = dict(K.LAUNCHES)
+    expected = [k for k in K.KERNELS if not k.startswith("poseidon2_bb")
+                and k not in ("poseidon2_permute", "poseidon2_absorb")]
+    missing = [k for k in expected if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    schedule = fri.fold_schedule(asm.trace_len, cfg.fri_final_degree, cfg.fri_folding_schedule)
+    proofs = len(res["witnesses"])
+    folds = proofs * sum(-(-k // fri.MAX_FOLD_K) for k in schedule)
+    if launches["fri_fold"] != folds or launches["quotient_sweep"] != (
+            proofs * setup.vk.quotient_degree):
+        raise AssertionError(f"{label}: {launches['fri_fold']} fold and "
+                             f"{launches['quotient_sweep']} sweep launches for {proofs} proofs")
+    log(f"[20] {proofs} witnesses proved against one setup, witness caps all differ; "
+        f"launches on the path {launches}")
+    out["launches"] = launches
+    out["profile"] = profile_prove(torch, prove, wasm, setup, cfg)
+    return out
 
 
 def drive_mini_stark(torch, label, log_n, phase) -> dict:
@@ -1295,6 +1448,7 @@ def main() -> int:
         print(f"chip_smoke: boojum_tpu_torch not importable: {e}", file=sys.stderr)
         return 2
     from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch import native
     from boojum_tpu_torch.circuits import (
         bench_message, blake2s_message_len, build_blake2s, build_fibonacci_recursion,
         build_fma, build_gate_zoo, build_general_lookup, build_keccak256,
@@ -1325,6 +1479,11 @@ def main() -> int:
     built = K.build_all()
     log(f"[2] built {', '.join(p.name for p in built.values())} "
         f"({time.perf_counter() - t:.1f} s)")
+    # the native witness resolver, built before the children that load it
+    native.get_lib()
+    log(f"[2] built {native.library_path().name} with {native.CXX} "
+        + (f"({native.BUILD_SECONDS:.1f} s)" if native.BUILD_SECONDS
+           else "(built before this run)"))
 
     cores = os.cpu_count() or 2
     sha_abc_child = start_cpu_child(CPU_PROOF, str(max(1, cores - 4)), "sha256 abc",
@@ -1334,11 +1493,18 @@ def main() -> int:
                                                      for a in (name, kind)))
     synthesis_children = {}
     TEMP_DIRS.append(tempfile.mkdtemp(prefix="chip_smoke_"))
-    for which, log_n in (("keccak256", HASH_LOG_N), ("blake2s", BLAKE_LOG_N),
-                         ("secp256k1_ladder", LADDER_LOG_N)):
+
+    def start_synthesis(which, log_n):
         out = os.path.join(TEMP_DIRS[-1], f"{which}.pickle")
         synthesis_children[which] = (
             start_cpu_child(CPU_SYNTHESIS, which, str(log_n), out), out)
+
+    for which, log_n in (("keccak256", HASH_LOG_N), ("blake2s", BLAKE_LOG_N),
+                         ("secp256k1_ladder", LADDER_LOG_N)):
+        start_synthesis(which, log_n)
+    witness_file = os.path.join(TEMP_DIRS[-1], "witnesses.pickle")
+    witness_child = start_cpu_child(WITNESS_SYNTHESIS, str(SHA_BYTES), str(REWITNESS_COUNT),
+                                    str(REWITNESS_SEED), witness_file)
     t = time.perf_counter()
     asm10 = build_fma(10).into_assembly()
     cs_abc, digest_abc = build_sha256(message=b"abc")
@@ -1373,6 +1539,11 @@ def main() -> int:
         (BB_XOR_PATH, asm_bb_xor, LOG_N, sha256_proof_config()),
     ], int_ops_per_s)
     log(f"[3] all {len(rows)} rows word-exact ({time.perf_counter() - t:.1f} s)")
+    # the 2^20 paths' synthesis, beside phase 4 (after phase 3, whose
+    # short launches wait on the host)
+    for which in ("fma", "general_lookup", "zero_check_witness", "fma_babybear",
+                  "xor_lookup_babybear"):
+        start_synthesis(which, LOG_N)
     # the size rows' tables would otherwise stay allocated under the proves'
     # peak memory
     ntt.clear_tables()
@@ -1403,9 +1574,18 @@ def main() -> int:
              dataclasses.replace(bb_small_cfg, transcript="blake2s"))):
         small[label] = card_against_cpu(torch, label, asm, cfg)
 
+    # the 2^20 paths' syntheses end here, before the first timed main path:
+    # no prove of phases 5-8 and 20, nor its profile, shares the host with them
+    synthesized = {which: synthesis_child_result(label, *synthesis_children.pop(which))
+                   for which, label in (("fma", FMA_PATH), ("general_lookup", GEN_PATH),
+                                        ("zero_check_witness", WIT_PATH),
+                                        ("fma_babybear", BB_FMA_PATH),
+                                        ("xor_lookup_babybear", BB_XOR_PATH))}
+
     # each main path: every count goes to 0 before it and is read after verify
     def fma_circuit():
-        return build_fma(LOG_N).into_assembly(), lambda _proof: None
+        res = synthesized.pop("fma")
+        return res["asm"], lambda _proof: None, res["synthesis_s"], res["resolver"]
 
     fma = drive_path(torch, FMA_PATH, fma_circuit, fma_proof_config(), LOG_N, 5, True)
     t = time.perf_counter()
@@ -1444,8 +1624,8 @@ def main() -> int:
     prof_sha = profile_prove(torch, prove, sha["asm"], sha["setup"], sha256_proof_config())
     prof_sha.update(circuit=SHA_PATH, card=card,
                     card_against_cpu_s=small, **{
-                        k: sha[k] for k in ("synthesis_s", "setup_s", "prove_cold_s",
-                                            "rounds_cold_s", "verify_s",
+                        k: sha[k] for k in ("synthesis_s", "resolver", "setup_s",
+                                            "prove_cold_s", "rounds_cold_s", "verify_s",
                                             "peak_device_memory_gib",
                                             "launches_on_prove")})
     log(f"[8] warm prove {prof_sha['prove_warm_s']:.3f} s, device busy "
@@ -1453,6 +1633,18 @@ def main() -> int:
         f"{prof_sha['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
     profiles = [prof_fma, prof_sha]
     paths = {FMA_PATH: fma["launches"], SHA_PATH: sha["launches"]}
+    # phase 20: phase 7's circuit set up from a setup-only synthesis, and
+    # proved for further witnesses synthesized by the child started before
+    # phase 3
+    rew = drive_rewitness(torch, REWITNESS_PATH,
+                          synthesis_child_result(REWITNESS_PATH, witness_child, witness_file),
+                          sha256_proof_config(), sha["setup"].vk, inner_proof, SHA_LOG_N)
+    prof = rew.pop("profile")
+    prof.update(circuit=REWITNESS_PATH, card=card, **rew)
+    log(f"[20] warm prove {prof['prove_warm_s']:.3f} s, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle share {prof['device_idle_share']:.3f}")
+    paths[REWITNESS_PATH] = prof.pop("launches")
+    profiles.append(prof)
     # phase 4's sha256 "abc" and 130-column circuits, their CPU sides from
     # the child started before phase 3, which has run beside phases 3-8
     small["sha256 abc 2^14"] = card_against_cpu(
@@ -1498,26 +1690,27 @@ def main() -> int:
         paths[label] = run["launches"]
     del sha_asm
     # the slice: general-purpose-column lookups and witness columns at 2^20
-    for phase, label, build in ((9, GEN_PATH, build_general_lookup),
-                                (10, WIT_PATH, build_zero_check_witness)):
+    for phase, label, which in ((9, GEN_PATH, "general_lookup"),
+                                (10, WIT_PATH, "zero_check_witness")):
 
-        def circuit(build=build, label=label):
-            cs, out = build(LOG_N)
-            want = cs.get_value(out)
+        def circuit(which=which, label=label):
+            res = synthesized.pop(which)
+            want = res["output"]
 
             def check(proof):
                 if proof.public_inputs != [want]:
                     raise AssertionError(f"{label}: public input {proof.public_inputs} "
                                          f"differs from the host's {want}")
 
-            return cs.into_assembly(), check
+            return res["asm"], check, res["synthesis_s"], res["resolver"]
 
         run = drive_path(torch, label, circuit, sha256_proof_config(), LOG_N, phase, True)
         t = time.perf_counter()
         prof = profile_prove(torch, prove, run["asm"], run["setup"], sha256_proof_config())
         prof.update(circuit=label, card=card, **{
-            k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s", "rounds_cold_s",
-                                "verify_s", "peak_device_memory_gib", "launches_on_prove")})
+            k: run[k] for k in ("synthesis_s", "resolver", "setup_s", "prove_cold_s",
+                                "rounds_cold_s", "verify_s", "peak_device_memory_gib",
+                                "launches_on_prove")})
         log(f"[{phase}] warm prove {prof['prove_warm_s']:.3f} s, device busy "
             f"{prof['device_busy_ms']:.1f} ms, idle share "
             f"{prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
@@ -1530,28 +1723,27 @@ def main() -> int:
         paths[label] = run["launches"]
     # the BabyBear prover: the fma chain (fma config) and the xor4 lookup
     # circuit (sha256's config) at 2^20 rows, then the mini-STARK
-    xor_steps = (1 << LOG_N) - 8  # two lookup rows a step over R = 2 columns
-
     def bb_fma():
         want = fma_chain_value(LOG_N, BABYBEAR.p)
+        res = synthesized.pop("fma_babybear")
 
         def check(proof):
             if proof.public_inputs != [want]:
                 raise AssertionError(f"{BB_FMA_PATH}: public input {proof.public_inputs} "
                                      f"differs from the host's {want}")
 
-        return build_fma(LOG_N, field="babybear").into_assembly(), check
+        return res["asm"], check, res["synthesis_s"], res["resolver"]
 
     def bb_xor():
-        cs, acc, _out = build_xor_lookup(xor_steps, 1 << LOG_N, field="babybear")
-        want = cs.get_value(acc)
+        res = synthesized.pop("xor_lookup_babybear")
+        want = res["output"]
 
         def check(proof):
             if proof.public_inputs != [want]:
                 raise AssertionError(f"{BB_XOR_PATH}: public input {proof.public_inputs} "
                                      f"differs from the host's {want}")
 
-        return cs.into_assembly(), check
+        return res["asm"], check, res["synthesis_s"], res["resolver"]
 
     for phase, label, synth, cfg in ((12, BB_FMA_PATH, bb_fma, fma_proof_config()),
                                      (13, BB_XOR_PATH, bb_xor, sha256_proof_config())):
@@ -1559,8 +1751,9 @@ def main() -> int:
         t = time.perf_counter()
         prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
         prof.update(circuit=label, card=card, **{
-            k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s", "rounds_cold_s",
-                                "verify_s", "peak_device_memory_gib", "launches_on_prove")})
+            k: run[k] for k in ("synthesis_s", "resolver", "setup_s", "prove_cold_s",
+                                "rounds_cold_s", "verify_s", "peak_device_memory_gib",
+                                "launches_on_prove")})
         log(f"[{phase}] warm prove {prof['prove_warm_s']:.3f} s, device busy "
             f"{prof['device_busy_ms']:.1f} ms, idle share "
             f"{prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
@@ -1586,15 +1779,16 @@ def main() -> int:
                     raise AssertionError(f"{label}: the circuit's digest of {len(message)} "
                                          f"bytes differs from the host's")
 
-            return res["asm"], check, res["synthesis_s"]
+            return res["asm"], check, res["synthesis_s"], res["resolver"]
 
         cfg = sha256_proof_config()
         run = drive_path(torch, label, circuit, cfg, log_n, phase, True)
         t = time.perf_counter()
         prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
         prof.update(circuit=label, message_bytes=len(message), card=card, **{
-            k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s", "rounds_cold_s",
-                                "verify_s", "peak_device_memory_gib", "launches_on_prove")})
+            k: run[k] for k in ("synthesis_s", "resolver", "setup_s", "prove_cold_s",
+                                "rounds_cold_s", "verify_s", "peak_device_memory_gib",
+                                "launches_on_prove")})
         log(f"[{phase}] {len(message)} B, digest checked; warm prove "
             f"{prof['prove_warm_s']:.3f} s, device busy {prof['device_busy_ms']:.1f} ms, "
             f"idle share {prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
@@ -1616,15 +1810,16 @@ def main() -> int:
                 raise AssertionError(f"{LADDER_PATH}: the circuit's affine result differs "
                                      f"from the host's [k]G")
 
-        return res["asm"], check, res["synthesis_s"]
+        return res["asm"], check, res["synthesis_s"], res["resolver"]
 
     cfg = sha256_proof_config()
     run = drive_path(torch, LADDER_PATH, ladder_circuit, cfg, LADDER_LOG_N, 17, True)
     t = time.perf_counter()
     prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
     prof.update(circuit=LADDER_PATH, ladder_steps=ladder["steps"], card=card, **{
-        k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s", "rounds_cold_s",
-                            "verify_s", "peak_device_memory_gib", "launches_on_prove")})
+        k: run[k] for k in ("synthesis_s", "resolver", "setup_s", "prove_cold_s",
+                            "rounds_cold_s", "verify_s", "peak_device_memory_gib",
+                            "launches_on_prove")})
     log(f"[17] {ladder['steps']} ladder steps, [k]G checked; warm prove "
         f"{prof['prove_warm_s']:.3f} s, device busy {prof['device_busy_ms']:.1f} ms, "
         f"idle share {prof['device_idle_share']:.3f} ({time.perf_counter() - t:.1f} s)")
@@ -1642,14 +1837,14 @@ def main() -> int:
                 raise AssertionError(f"{REC_PATH}: public inputs {proof.public_inputs} "
                                      f"differ from the inner proof's {res['output']}")
 
-        return res["asm"], check, res["synthesis_s"]
+        return res["asm"], check, res["synthesis_s"], res["resolver"]
 
     cfg = sha256_proof_config()
     run = drive_path(torch, REC_PATH, rec_circuit, cfg, REC_LOG_N, 19, False)
     t = time.perf_counter()
     prof = profile_prove(torch, prove, run["asm"], run["setup"], cfg)
     prof.update(circuit=REC_PATH, card=card, inner_public_inputs=len(inner_proof.public_inputs),
-                **{k: run[k] for k in ("synthesis_s", "setup_s", "prove_cold_s",
+                **{k: run[k] for k in ("synthesis_s", "resolver", "setup_s", "prove_cold_s",
                                        "rounds_cold_s", "verify_s", "peak_device_memory_gib",
                                        "launches_on_prove")})
     gates = sorted({g.name for g in run["asm"].gates})

@@ -67,8 +67,9 @@ def main() -> int:
     asm = cs.into_assembly()
     synthesis_s = time.perf_counter() - t
     digest_ok = keccak256_digest_bytes(cs, digest) == keccak256(message)
-    log(f"synthesis {synthesis_s:.1f} s, {len(message)} bytes, {asm.trace_len} rows, "
-        f"digest equals the host's: {digest_ok}")
+    resolver = cs.resolver.name
+    log(f"synthesis {synthesis_s:.1f} s (resolver {resolver}), {len(message)} bytes, "
+        f"{asm.trace_len} rows, digest equals the host's: {digest_ok}")
     if asm.trace_len != 1 << LOG_N or not digest_ok:
         raise AssertionError("wrong circuit: rows or digest")
     del cs
@@ -76,7 +77,8 @@ def main() -> int:
                       pow_bits=0, fri_final_degree=16)
 
     result = {"card": card, "message_bytes": len(message), "rows": asm.trace_len,
-              "synthesis_s": synthesis_s, "digest_matches_host": digest_ok}
+              "synthesis_s": synthesis_s, "resolver": resolver,
+              "digest_matches_host": digest_ok}
     proofs = {}
     for rule, kw in (("default", {}), ("materialized", {"stream_threshold_bytes": math.inf})):
         torch.cuda.empty_cache()

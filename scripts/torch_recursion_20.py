@@ -46,8 +46,8 @@ def log(msg: str) -> None:
 
 
 def synthesize_sha256(message: bytes):
-    """(assembly, digest equals hashlib's, seconds) of sha256 over `message`
-    (run in a worker process, on the CPU)."""
+    """(assembly, digest equals hashlib's, seconds, resolver) of sha256 over
+    `message` (run in a worker process, on the CPU)."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     sys.path.insert(0, str(ROOT))
     from boojum_tpu_torch.circuits import build_sha256
@@ -56,7 +56,7 @@ def synthesize_sha256(message: bytes):
     t = time.perf_counter()
     cs, digest = build_sha256(message=message)
     ok = sha256_digest_bytes(cs, digest) == hashlib.sha256(message).digest()
-    return cs.into_assembly(), ok, time.perf_counter() - t
+    return cs.into_assembly(), ok, time.perf_counter() - t, cs.resolver.name
 
 
 def main() -> int:
@@ -72,6 +72,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from boojum_tpu_torch import kernels as K
+    from boojum_tpu_torch import native
     from boojum_tpu_torch.circuits import (
         port_recursion_namespace, recursion_cs, recursion_inner_count, sha256_proof_config,
         verify_into,
@@ -85,6 +86,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"card: {card}")
     t0 = time.perf_counter()
+    native.get_lib()  # the native witness resolver, built once before the workers load it
     # the workers start before this process touches the card
     workers = max(1, (os.cpu_count() or 2) - 2)
     pool = ProcessPoolExecutor(max_workers=workers, mp_context=get_context("spawn"))
@@ -108,7 +110,7 @@ def main() -> int:
     public_inputs = []
     done = 0
     while count is None or done < count:
-        asm, digest_ok, synth_s = pending.pop(0).result()
+        asm, digest_ok, synth_s, inner_resolver = pending.pop(0).result()
         if count is None or done + len(pending) < count:
             submit(1)
         stats["sha256_synthesis_s"] += synth_s
@@ -147,16 +149,19 @@ def main() -> int:
     pool.shutdown()
     t = time.perf_counter()
     outer_asm = outer.into_assembly()
+    outer_resolver = outer.resolver.name
     del outer
     stats["outer_synthesis_s"] += time.perf_counter() - t
     if outer_asm.trace_len != 1 << args.log_n:
         raise AssertionError(f"{outer_asm.trace_len} rows, not 2^{args.log_n}")
     result = {"card": card, "log_n": args.log_n, "inner_proofs": count,
               "inner_rows": first_asm.trace_len, "workers": workers,
+              "inner_resolver": inner_resolver, "outer_resolver": outer_resolver,
               "gates": sorted({g.name for g in outer_asm.gates}), **stats}
     log(f"recursion circuit: {count} sha256 proofs, {outer_asm.trace_len} rows; sha256 "
-        f"synthesis {stats['sha256_synthesis_s']:.1f} s in workers, inner proves "
-        f"{stats['inner_prove_s']:.1f} s, outer synthesis {stats['outer_synthesis_s']:.1f} s")
+        f"synthesis {stats['sha256_synthesis_s']:.1f} s in workers (resolver "
+        f"{inner_resolver}), inner proves {stats['inner_prove_s']:.1f} s, outer synthesis "
+        f"{stats['outer_synthesis_s']:.1f} s (resolver {outer_resolver})")
     del first_asm, inner_setup
 
     proofs = {}

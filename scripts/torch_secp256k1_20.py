@@ -70,8 +70,9 @@ def main() -> int:
                  and (out.x.get_value(cs), out.y.get_value(cs))
                  == secp256k1_mul_host(out.scalar))
     steps = out.scalar.bit_length()
-    log(f"synthesis {synthesis_s:.1f} s, {steps} ladder steps, {asm.trace_len} rows, "
-        f"[k]G equals the host's: {result_ok}")
+    resolver = cs.resolver.name
+    log(f"synthesis {synthesis_s:.1f} s (resolver {resolver}), {steps} ladder steps, "
+        f"{asm.trace_len} rows, [k]G equals the host's: {result_ok}")
     if asm.trace_len != 1 << LOG_N or not result_ok:
         raise AssertionError("wrong circuit: rows or result")
     del cs
@@ -79,7 +80,8 @@ def main() -> int:
                       pow_bits=0, fri_final_degree=16)
 
     result = {"card": card, "ladder_steps": steps, "rows": asm.trace_len,
-              "synthesis_s": synthesis_s, "result_matches_host": result_ok}
+              "synthesis_s": synthesis_s, "resolver": resolver,
+              "result_matches_host": result_ok}
     proofs = {}
     for rule, kw in (("default", {}), ("materialized", {"stream_threshold_bytes": math.inf})):
         torch.cuda.empty_cache()

@@ -12,9 +12,10 @@ the plain version of every kernel.
 Synthesizes bench.py's sha256 circuit (60 copy columns, 8 constant columns,
 degree 7, width-4 x8 specialized lookups) in both packages, sets it up and
 proves it with bench.py's proof config (LDE 8, cap 16, 50 queries, no PoW,
-final degree 16), then prints one JSON line: each side's seconds, whether
-the checkpoint streams and the proof JSON texts are equal, and whether each
-package's verifier accepts the other's proof. sha256(b"abc") pads to 2^14
+final degree 16), then prints one JSON line: each side's seconds, the
+port's witness resolver (the native tape), whether the checkpoint streams
+and the proof JSON texts are equal, and whether each package's verifier
+accepts the other's proof. sha256(b"abc") pads to 2^14
 rows. `--bench-bytes N` takes bench.py's message of N bytes (byte i is
 i mod 255) in place of `--message`: 8192 bytes, bench.py's headline, pad
 to 2^16 rows. The port sizes the constraint system's capacity as
@@ -137,6 +138,7 @@ def main() -> int:
     else:
         cs, _output = (build_secp256k1_ladder(args.log_n) if ladder else build(message=message))
     asm = cs.into_assembly()
+    out["port_resolver"] = cs.resolver.name
     cfg = PortProofConfig(**config)
     assert rec or cfg == sha256_proof_config()
     setup = generate_setup(asm, cfg, device="cpu")

@@ -62,8 +62,9 @@ def main() -> int:
     asm = cs.into_assembly()
     synthesis_s = time.perf_counter() - t
     digest_ok = sha256_digest_bytes(cs, digest) == hashlib.sha256(message).digest()
-    log(f"synthesis {synthesis_s:.1f} s, {asm.trace_len} rows, digest equals "
-        f"hashlib's: {digest_ok}")
+    resolver = cs.resolver.name
+    log(f"synthesis {synthesis_s:.1f} s (resolver {resolver}), {asm.trace_len} rows, "
+        f"digest equals hashlib's: {digest_ok}")
     if asm.trace_len != 1 << LOG_N or not digest_ok:
         raise AssertionError("wrong circuit: rows or digest")
     del cs
@@ -71,7 +72,8 @@ def main() -> int:
                       pow_bits=0, fri_final_degree=16)
 
     result = {"card": card, "message_bytes": MESSAGE_BYTES, "rows": asm.trace_len,
-              "synthesis_s": synthesis_s, "digest_matches_hashlib": digest_ok}
+              "synthesis_s": synthesis_s, "resolver": resolver,
+              "digest_matches_hashlib": digest_ok}
     proofs = {}
     for rule, kw in (("default", {}), ("materialized", {"stream_threshold_bytes": math.inf})):
         torch.cuda.empty_cache()

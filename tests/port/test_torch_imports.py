@@ -46,6 +46,9 @@ def test_every_module_imports_without_jax_or_boojum_tpu():
             "boojum_tpu_torch.ntt.bb_ntt", "boojum_tpu_torch.prover.prover_bb",
             "boojum_tpu_torch.prover.bb_prover", "boojum_tpu_torch.prover.bb_verifier",
             "boojum_tpu_torch.prover.stages_bb"} <= set(MODULES)
+    # and witness resolution's
+    assert {"boojum_tpu_torch.dag", "boojum_tpu_torch.dag.resolver",
+            "boojum_tpu_torch.native"} <= set(MODULES)
 
 
 def test_sources_name_no_jax_import():
